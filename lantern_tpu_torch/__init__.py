@@ -1,0 +1,51 @@
+"""lantern_tpu_torch: the PyTorch/CUDA port of lantern-tpu for NVIDIA Hopper.
+
+A second package beside ``lantern_tpu`` (the JAX reference). It keeps the
+reference's module names so each function has a counterpart to read:
+
+- ``config``            index/search parameters (own copy of the reference's)
+- ``native``            the C++ HNSW host engine, bound with ctypes
+- ``graph.device``      ``DeviceGraph``: the graph arrays as torch tensors
+- ``graph.search``      the batched HNSW beam search
+- ``flat``              the dense matmul + top-k scan
+- ``ops.distance``      distances and the exact-search oracle
+- ``ops.gather_dists``  the beam's gather-distance kernel (CUDA, csrc/)
+- ``costmodel``         flat-vs-graph dispatch
+- ``index``             the ``Index`` facade
+
+It imports torch and numpy only, never jax or lantern_tpu. Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``; with no card and no
+explicit CPU device they raise instead of quietly running on the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: ``None`` means ``cuda``.
+
+    Raises RuntimeError when CUDA is asked for (explicitly or by default)
+    and no card is present; the CPU runs only when named.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "lantern_tpu_torch needs a CUDA device (none found); pass "
+            "device='cpu' to run the plain PyTorch path on the host"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+from lantern_tpu_torch.config import (  # noqa: E402,F401
+    HnswParams,
+    Metric,
+    QuantKind,
+    SearchParams,
+)
+from lantern_tpu_torch.index import Index  # noqa: E402,F401

@@ -1,0 +1,228 @@
+"""ctypes binding for the native HNSW host engine (hnsw_engine.cpp).
+
+The port's own copy of lantern_tpu/native: ``hnsw_engine.cpp`` is the same
+source byte for byte, compiled with g++ at first use into the port's build
+directory (``lantern_tpu_torch/_build/``, see csrc/build.py). Plain C ABI,
+no framework. ``import_graph`` (adopting a device-built graph) waits for the
+device-builder slice and is not bound here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+
+import numpy as np
+
+from lantern_tpu_torch.config import HnswParams, Metric
+from lantern_tpu_torch.csrc.build import build_shared
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hnsw_engine.cpp")
+# max graph levels; hnsw_engine.cpp's LMAX constant has the same value
+LMAX = 16
+_GXX = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+        "-pthread"]
+
+
+@functools.cache
+def get_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_shared(_SRC, _GXX, "hnsw"))
+    lib.ldb_index_new.restype = ctypes.c_void_p
+    lib.ldb_index_new.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64,
+    ]
+    lib.ldb_index_free.argtypes = [ctypes.c_void_p]
+    lib.ldb_index_add.restype = ctypes.c_int64
+    lib.ldb_index_add.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int32,
+    ]
+    lib.ldb_index_search.restype = ctypes.c_int32
+    lib.ldb_index_search.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.ldb_index_mark_deleted.restype = ctypes.c_int64
+    lib.ldb_index_mark_deleted.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.ldb_index_stats.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 6
+    for name in (
+        "ldb_index_vectors", "ldb_index_neighbors0", "ldb_index_counts0",
+        "ldb_index_upper_neighbors", "ldb_index_upper_counts",
+        "ldb_index_upper_slot", "ldb_index_levels", "ldb_index_labels",
+        "ldb_index_deleted",
+    ):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_void_p]
+    lib.ldb_index_error.restype = ctypes.c_char_p
+    lib.ldb_index_error.argtypes = [ctypes.c_void_p]
+    lib.ldb_index_grow.restype = ctypes.c_int32
+    lib.ldb_index_grow.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    return lib
+
+
+def _as_np(ptr: int, shape, dtype):
+    """Zero-copy view into C++-owned memory.
+
+    LIFETIME CONTRACT: the view dangles after ldb_index_grow (realloc) or
+    engine destruction. Consumers re-fetch the property after grow() and
+    copy before keeping data (``torch.from_numpy`` would alias it).
+    """
+    size = int(np.prod(shape))
+    buf = (ctypes.c_char * (size * np.dtype(dtype).itemsize)).from_address(ptr)
+    return np.frombuffer(buf, dtype=dtype).reshape(shape)
+
+
+class NativeHnsw:
+    """Multicore native HNSW index over f32 rows (l2sq / cos)."""
+
+    def __init__(self, params: HnswParams, capacity: int = 1024, seed: int = 0):
+        self.p = params
+        self.metric = Metric(params.metric)
+        if self.metric == Metric.HAMMING:
+            raise NotImplementedError(
+                "hamming indexes wait for the hamming slice (ROADMAP queue 1)"
+            )
+        self._cap = max(int(capacity), 8)
+        self._lib = get_lib()
+        self._h = self._lib.ldb_index_new(
+            params.dim, params.dim, params.m, params.ef_construction,
+            int(self.metric), self._cap, seed,
+        )
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.ldb_index_free(h)
+            self._h = None
+
+    # ---- stats ----
+    def _stats(self):
+        vals = [ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int32(),
+                ctypes.c_int32(), ctypes.c_int64(), ctypes.c_int64()]
+        self._lib.ldb_index_stats(self._h, *[ctypes.byref(v) for v in vals])
+        return tuple(v.value for v in vals)  # n, n_upper, entry, max_level, cap, ucap
+
+    @property
+    def n(self):
+        return self._stats()[0]
+
+    @property
+    def n_upper(self):
+        return self._stats()[1]
+
+    @property
+    def entry(self):
+        return self._stats()[2]
+
+    @property
+    def max_level(self):
+        return self._stats()[3]
+
+    # ---- array views (zero-copy; see _as_np lifetime contract) ----
+    def _view(self, name, shape, dtype):
+        return _as_np(getattr(self._lib, name)(self._h), shape, dtype)
+
+    @property
+    def vectors(self):
+        cap = self._stats()[4]
+        return self._view("ldb_index_vectors", (cap, self.p.dim), np.float32)
+
+    @property
+    def neighbors0(self):
+        cap = self._stats()[4]
+        return self._view("ldb_index_neighbors0", (cap, self.p.m0), np.int32)
+
+    @property
+    def counts0(self):
+        cap = self._stats()[4]
+        return self._view("ldb_index_counts0", (cap,), np.int32)
+
+    @property
+    def upper_neighbors(self):
+        ucap = self._stats()[5]
+        return self._view("ldb_index_upper_neighbors", (ucap, LMAX, self.p.m),
+                          np.int32)
+
+    @property
+    def upper_counts(self):
+        ucap = self._stats()[5]
+        return self._view("ldb_index_upper_counts", (ucap, LMAX), np.int32)
+
+    @property
+    def upper_slot(self):
+        cap = self._stats()[4]
+        return self._view("ldb_index_upper_slot", (cap,), np.int32)
+
+    @property
+    def levels(self):
+        cap = self._stats()[4]
+        return self._view("ldb_index_levels", (cap,), np.int32)
+
+    @property
+    def labels(self):
+        cap = self._stats()[4]
+        return self._view("ldb_index_labels", (cap,), np.uint64)
+
+    @property
+    def deleted(self):
+        cap = self._stats()[4]
+        return self._view("ldb_index_deleted", (cap,), np.uint8).astype(bool)
+
+    # ---- operations ----
+    def add(self, vecs: np.ndarray, labels: np.ndarray | None = None,
+            nthreads: int = 0):
+        """Insert rows with ``nthreads`` workers (0 = all host cores; the
+        graph then depends on thread timing, so pass 1 to reproduce one)."""
+        vecs = np.ascontiguousarray(vecs, dtype=np.float32)
+        if vecs.ndim == 1:
+            vecs = vecs[None, :]
+        if vecs.shape[1] != self.p.dim:
+            raise ValueError(f"vector width {vecs.shape[1]} != expected {self.p.dim}")
+        if labels is None:
+            # NULL: the engine derives label = row id inside its atomically
+            # reserved range (safe under concurrent add())
+            labels_ptr = None
+        else:
+            labels = np.ascontiguousarray(labels, np.uint64)
+            if len(labels) != len(vecs):
+                raise ValueError(f"{len(labels)} labels for {len(vecs)} vectors")
+            labels_ptr = labels.ctypes.data_as(ctypes.c_void_p)
+        rc = self._lib.ldb_index_add(
+            self._h, len(vecs), vecs.ctypes.data_as(ctypes.c_void_p),
+            labels_ptr, nthreads,
+        )
+        if rc < 0:
+            raise MemoryError(self._lib.ldb_index_error(self._h).decode())
+        return rc
+
+    def search(self, q: np.ndarray, k: int, ef: int | None = None):
+        """Single-query search on the host (the reference's execution model)."""
+        ef = ef or self.p.ef
+        q = np.ascontiguousarray(q, np.float32)
+        out_ids = np.empty(max(k, ef), np.int32)
+        out_d = np.empty(max(k, ef), np.float32)
+        cnt = self._lib.ldb_index_search(
+            self._h, q.ctypes.data_as(ctypes.c_void_p), k, ef,
+            out_ids.ctypes.data_as(ctypes.c_void_p),
+            out_d.ctypes.data_as(ctypes.c_void_p),
+        )
+        return out_ids[:cnt].copy(), out_d[:cnt].copy()
+
+    def grow(self, new_cap: int) -> None:
+        """Grow capacity in place (doubling semantics of server.rs:243-247).
+        Must not run concurrently with add/search."""
+        rc = self._lib.ldb_index_grow(self._h, int(new_cap))
+        if rc != 0:
+            raise MemoryError(self._lib.ldb_index_error(self._h).decode())
+        self._cap = int(new_cap)
+
+    def mark_deleted(self, labels: np.ndarray) -> int:
+        labels = np.ascontiguousarray(labels, np.uint64)
+        return self._lib.ldb_index_mark_deleted(
+            self._h, labels.ctypes.data_as(ctypes.c_void_p), len(labels)
+        )

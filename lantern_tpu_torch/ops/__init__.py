@@ -1,0 +1,15 @@
+"""Distance functions and the port's hand-written kernels."""
+
+from lantern_tpu_torch.ops.distance import (  # noqa: F401
+    cos_dist,
+    exact_search,
+    hamming_dist,
+    l2sq_dist,
+    pack_bits,
+    pairwise_dist,
+    unpack_bits,
+)
+from lantern_tpu_torch.ops.gather_dists import (  # noqa: F401
+    gather_dists,
+    gather_dists_ref,
+)
