@@ -6,10 +6,12 @@ reference's module names so each function has a counterpart to read:
 - ``config``            index/search parameters (own copy of the reference's)
 - ``native``            the C++ HNSW host engine, bound with ctypes
 - ``graph.device``      ``DeviceGraph``: the graph arrays as torch tensors
-- ``graph.search``      the batched HNSW beam search
-- ``flat``              the dense matmul + top-k scan
+- ``graph.search``      the batched HNSW beam search (ADC for PQ graphs)
+- ``flat``              the dense matmul + top-k scan, the PQ scan and rerank
+- ``quant.pq``          PQ codebook training, encode/decode, ADC tables
 - ``ops.distance``      distances and the exact-search oracle
 - ``ops.gather_dists``  the beam's gather-distance kernel (CUDA, csrc/)
+- ``ops.pq_decode``     the PQ decode kernel (CUDA, csrc/)
 - ``costmodel``         flat-vs-graph dispatch
 - ``index``             the ``Index`` facade
 

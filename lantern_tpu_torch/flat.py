@@ -1,4 +1,4 @@
-"""Flat scan: one matmul plus top-k (port of lantern_tpu/flat.py, non-PQ).
+"""Flat scan: one matmul plus top-k (port of lantern_tpu/flat.py).
 
 Scores are rank-equivalent, not metric-equal: l2sq ranks by 2<q,x> - |x|^2,
 cosine by <q,x>/|x|; true distances are rebuilt for the returned k only.
@@ -7,6 +7,11 @@ are exact and sums f32, as the reference's f32-accumulating dot) with
 ``torch.matmul`` and reduced with ``torch.topk``, which is exact: the port has
 no approximate top-k. Up to ``ONESHOT_MAX_N`` rows the scan is one [Q, N]
 block; above, it walks blocks and merges a running top-k.
+
+PQ tables scan by decoding each block of codes with the PQ decode kernel
+(``ops/pq_decode.py``, which also returns |x|^2) and scoring the decoded
+block densely (``flat_search_pq``); ``flat_search_pq_rerank`` re-scores an
+ADC shortlist against full-precision rows.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 
 from lantern_tpu_torch.config import Metric
 from lantern_tpu_torch.ops.distance import require_full_f32_matmul
+from lantern_tpu_torch.ops.pq_decode import codebook_bf16, pq_decode
 
 # one-shot scans materialise a [Q, N] score block; beyond this N the scan is
 # blocked to bound it
@@ -114,6 +120,125 @@ def flat_search(
     return _blocked_flat_topk(score_fn, n, min(k, n), k, block, q_sq, metric)
 
 
+def flat_search_pq(
+    codes: torch.Tensor,       # [N, S] uint8 PQ codes
+    centroids: torch.Tensor,   # [S, K, dsub] f32 codebook
+    queries: torch.Tensor,     # [Q, dim] f32
+    k: int = 10,
+    metric: int = int(Metric.L2SQ),
+    block: int = 1 << 19,
+    deleted: torch.Tensor | None = None,
+    rotation: torch.Tensor | None = None,
+):
+    """Flat ADC scan over PQ codes: decode each block, then score densely.
+
+        decoded[b] = concat_s bf16(centroids[s, codes[b, s]])  (K2/K3's port)
+        score[q, b] = 2 <bf16(q), decoded[b]> - |decoded[b]|^2  (l2sq ranks)
+
+    |x|^2 comes from the decode kernel's fused output (K6's). As in the
+    reference, the query is rounded to bf16 for the product but |q|^2 comes
+    from the f32 query; the product runs in f32 on the widened operands
+    (bf16 values multiply exactly in f32, and in TF32 too). With an OPQ
+    ``rotation`` the query is rotated first. The bf16 codebook is rounded
+    once per call, not per block. Returns (dists [Q, k] ascending, ids [Q, k]
+    int32), padded with (inf, -1).
+    """
+    metric = Metric(metric)
+    if metric == Metric.HAMMING:
+        raise ValueError("PQ scan supports l2sq/cos only")
+    n = codes.shape[0]
+    qf = queries.float()
+    if rotation is not None:  # OPQ: codes live in the rotated space
+        qf = qf @ rotation
+    q_sq = (qf * qf).sum(1)
+    if n == 0:
+        return _pad_k(qf.new_zeros((qf.shape[0], 0)),
+                      torch.zeros((qf.shape[0], 0), dtype=torch.int32,
+                                  device=qf.device), k)
+    cb = codebook_bf16(centroids)
+    qb = qf.to(torch.bfloat16).float()
+
+    def score_fn(start, stop):
+        dec, x_sq = pq_decode(codes[start:stop], cb, want_xsq=True)
+        dots = qb @ dec.float().T
+        if metric == Metric.L2SQ:
+            s = dots.mul_(2.0).sub_(x_sq[None, :])
+        else:
+            s = dots.div_(torch.clamp(torch.sqrt(x_sq)[None, :], min=1e-30))
+        if deleted is not None:
+            s.masked_fill_(deleted[None, start:stop], float("-inf"))
+        return s
+
+    return _blocked_flat_topk(score_fn, n, min(k, n), k, min(block, n), q_sq,
+                              metric)
+
+
+def flat_search_pq_rerank(
+    codes: torch.Tensor,       # [N, S] uint8 PQ codes
+    centroids: torch.Tensor,   # [S, K, dsub] f32 codebook
+    vectors: torch.Tensor,     # [N, d] full-precision rows (f32 or bf16)
+    queries: torch.Tensor,     # [Q, d] f32
+    k: int = 10,
+    shortlist: int = 100,
+    metric: int = int(Metric.L2SQ),
+    block: int = 1 << 19,
+    deleted: torch.Tensor | None = None,
+    rotation: torch.Tensor | None = None,
+):
+    """Two-stage PQ search: an ADC scan keeps ``shortlist`` candidates per
+    query, then the true metric re-scores them against ``vectors`` at full
+    f32 (the reference's HIGHEST-precision einsums; TF32 is refused), |x|^2
+    from the gathered rows. Returns (dists [Q, k], ids [Q, k] int32)."""
+    metric = Metric(metric)
+    require_full_f32_matmul()
+    _, ids = flat_search_pq(codes, centroids, queries, k=shortlist,
+                            metric=metric, block=block, deleted=deleted,
+                            rotation=rotation)
+    rows = vectors[torch.clamp(ids, 0, vectors.shape[0] - 1).long()].float()
+    qf = queries.float()
+    dots = torch.einsum("qd,qld->ql", qf, rows)
+    x_sq = (rows * rows).sum(-1)
+    q_sq = (qf * qf).sum(1)[:, None]
+    if metric == Metric.L2SQ:
+        # clamp: bf16 rerank rows can round a self-match slightly negative
+        d = torch.clamp(q_sq - 2.0 * dots + x_sq, min=0.0)
+    else:
+        d = 1.0 - dots / torch.clamp(torch.sqrt(q_sq) * torch.sqrt(x_sq),
+                                     min=1e-30)
+    d = torch.where(ids >= 0, d, float("inf"))
+    s_d, order = torch.sort(d, dim=1, stable=True)
+    kk = min(k, d.shape[1])
+    out_d = s_d[:, :kk]
+    out_i = torch.where(torch.isfinite(out_d),
+                        torch.gather(ids, 1, order[:, :kk]), -1)
+    return _pad_k(out_d, out_i, k)
+
+
+def _excluded(graph, exclude):
+    """Tombstones, unfilled capacity rows and the optional exclude mask."""
+    excluded = graph.deleted | (
+        torch.arange(graph.cap, device=graph.device) >= graph.num_nodes
+    )
+    return excluded if exclude is None else excluded | exclude
+
+
+def flat_search_graph_rerank(graph, rerank_rows, queries, k: int = 10,
+                             shortlist: int = 100, exclude=None):
+    """Two-stage PQ search over a PQ DeviceGraph: ADC shortlist over its
+    codes, exact re-score against ``rerank_rows`` ([n, d] bf16 or f32, on
+    the graph's device). Returns (dists, ids, labels) like
+    flat_search_graph."""
+    from lantern_tpu_torch.graph.device import QUANT_PQ
+
+    if graph.quant != QUANT_PQ:
+        raise ValueError("flat_search_graph_rerank serves PQ graphs only")
+    d, ids = flat_search_pq_rerank(
+        graph.vectors, graph.pq_codebook, rerank_rows, queries, k=k,
+        shortlist=shortlist, metric=graph.metric,
+        deleted=_excluded(graph, exclude), rotation=graph.pq_rotation)
+    return d, ids, graph.labels_at(ids)
+
+
 def flat_search_graph(graph, queries, k: int = 10, exact: bool = False,
                       exclude=None):
     """Flat scan over a DeviceGraph's stored rows, labels resolved.
@@ -121,12 +246,17 @@ def flat_search_graph(graph, queries, k: int = 10, exact: bool = False,
     Returns (dists [Q, k], ids [Q, k], labels [Q, k] int64) like
     search_batched. Tombstones, unfilled capacity rows and the optional
     ``exclude`` [cap] bool mask are filtered exactly (masked before top-k).
+    PQ graphs run the ADC scan over their codes (``flat_search_pq``).
     """
-    excluded = graph.deleted | (
-        torch.arange(graph.cap, device=graph.device) >= graph.num_nodes
-    )
-    if exclude is not None:
-        excluded = excluded | exclude
-    d, ids = flat_search(graph.vectors, graph.sq_norms, queries, k=k,
-                         metric=graph.metric, exact=exact, deleted=excluded)
+    from lantern_tpu_torch.graph.device import QUANT_PQ
+
+    excluded = _excluded(graph, exclude)
+    if graph.quant == QUANT_PQ:
+        d, ids = flat_search_pq(graph.vectors, graph.pq_codebook, queries,
+                                k=k, metric=graph.metric, deleted=excluded,
+                                rotation=graph.pq_rotation)
+    else:
+        d, ids = flat_search(graph.vectors, graph.sq_norms, queries, k=k,
+                             metric=graph.metric, exact=exact,
+                             deleted=excluded)
     return d, ids, graph.labels_at(ids)

@@ -2,8 +2,11 @@
 
 A ``DeviceGraph`` holds the host engine's graph as flat tensors on one device:
 
-- ``vectors[cap, dim]``        f32 or bf16 rows
-- ``sq_norms[cap]``            f32 |x|^2
+- ``vectors[cap, dim]``        f32 or bf16 rows, or ``[cap, S]`` uint8 PQ codes
+                               (``quant == QUANT_PQ``, with ``pq_codebook``
+                               ``[S, K, dsub]`` f32 and the optional OPQ
+                               ``pq_rotation`` ``[dim, dim]``)
+- ``sq_norms[cap]``            f32 |x|^2 (of the decoded rows for PQ)
 - ``neighbors0[cap+1, 2M]``    level-0 adjacency, -1 padded; row ``cap`` is the
                                all-invalid dummy row that expands to nothing
 - ``upper_neighbors[ucap, LMAX, M]`` adjacency of the nodes with level >= 1
@@ -28,10 +31,14 @@ import torch
 from lantern_tpu_torch import resolve_device
 from lantern_tpu_torch.config import Metric, QuantKind
 
+# DeviceGraph.quant of product-quantised graphs (the reference's QUANT_PQ;
+# PQ is a separate option from the scalar QuantKind, as there)
+QUANT_PQ = 100
+
 
 @dataclasses.dataclass
 class DeviceGraph:
-    vectors: torch.Tensor          # [cap, dim] f32 / bf16
+    vectors: torch.Tensor          # [cap, dim] f32 / bf16, or [cap, S] u8 codes
     sq_norms: torch.Tensor         # [cap] f32
     neighbors0: torch.Tensor       # [cap+1, m0] int32
     upper_neighbors: torch.Tensor  # [ucap, LMAX, m] int32
@@ -47,6 +54,8 @@ class DeviceGraph:
     # 0)] and sq_norms[...]); attached only by with_aug_norms
     upper_vectors: torch.Tensor | None = None  # [ucap, dim]
     upper_sq: torch.Tensor | None = None       # [ucap] f32
+    pq_codebook: torch.Tensor | None = None    # [S, K, dsub] f32
+    pq_rotation: torch.Tensor | None = None    # [dim, dim] f32 (OPQ)
     m: int = 16
     dim: int = 0
     metric: int = int(Metric.L2SQ)
@@ -80,7 +89,8 @@ class DeviceGraph:
 
 def with_aug_norms(g: DeviceGraph) -> DeviceGraph:
     """Attach the cached upper-subset tables of the entry scan (l2sq over
-    f32/bf16 storage, as in the reference). Idempotent.
+    f32/bf16 storage, as in the reference; a no-op for PQ codes).
+    Idempotent.
 
     The reference also attaches a norm-folded row table here for its einsum
     beam; the port's beam reads |x|^2 from the gathered row inside K1
@@ -89,6 +99,8 @@ def with_aug_norms(g: DeviceGraph) -> DeviceGraph:
     if g.upper_vectors is not None:
         return g
     if Metric(g.metric) != Metric.L2SQ:
+        return g
+    if g.quant not in (int(QuantKind.F32), int(QuantKind.F16)):
         return g
     if g.upper_ids is None or g.upper_ids.shape[0] <= 1:
         return g
@@ -116,24 +128,30 @@ def _check_scope(metric: Metric, quant: int) -> None:
     if metric == Metric.HAMMING:
         raise NotImplementedError(
             "hamming graphs wait for the hamming slice (ROADMAP queue 1)")
-    if quant not in (int(QuantKind.F32), int(QuantKind.F16)):
+    if quant not in (int(QuantKind.F32), int(QuantKind.F16), QUANT_PQ):
         raise NotImplementedError(
-            f"quant={quant} waits for the PQ / scalar-quant slice "
-            "(ROADMAP queue 1); the port stores f32 or bf16 rows")
+            f"quant={quant} waits for the i8 / b1 items (ROADMAP queue 1); "
+            "the port stores f32 or bf16 rows, or PQ codes")
 
 
 def to_device(host, dtype: torch.dtype | None = None,
-              device: str | torch.device | None = None) -> DeviceGraph:
+              device: str | torch.device | None = None,
+              pq_codebook=None) -> DeviceGraph:
     """Copy a NativeHnsw into a DeviceGraph on ``device`` (default cuda).
 
     ``dtype=torch.bfloat16`` stores bf16 rows (QuantKind.F16, as the
-    reference's bf16 mirror). The engine's arrays are zero-copy views of
+    reference's bf16 mirror). ``pq_codebook`` (quant.pq.PQCodebook) stores
+    only the rows' uint8 codes, ``vectors [cap, S]`` (QUANT_PQ), beside the
+    codebook; ``sq_norms`` are those of the engine's rows, which for a PQ
+    index are the decoded rows. The engine's arrays are zero-copy views of
     C++ memory that dangle after grow(); every array is copied before it
     becomes a tensor.
     """
     dev = resolve_device(device)
     metric = Metric(host.metric)
     quant = int(QuantKind.F16) if dtype == torch.bfloat16 else int(QuantKind.F32)
+    if pq_codebook is not None:
+        quant = QUANT_PQ
     if dtype not in (None, torch.float32, torch.bfloat16):
         raise NotImplementedError(f"dtype {dtype}: the port stores f32 or bf16")
     _check_scope(metric, quant)
@@ -146,11 +164,22 @@ def to_device(host, dtype: torch.dtype | None = None,
     )
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return torch.from_numpy(np.require(a, requirements=("C", "W"))).to(dev)
 
-    vec = t(vectors)
+    pq_cb = pq_rot = None
+    if pq_codebook is not None:
+        from lantern_tpu_torch.quant.pq import pq_encode
+
+        vec = t(pq_encode(vectors, pq_codebook, device=dev))  # [n, S] u8
+        pq_cb = t(np.asarray(pq_codebook.centroids, np.float32))
+        if pq_codebook.rotation is not None:
+            pq_rot = t(np.asarray(pq_codebook.rotation, np.float32))
+    else:
+        vec = t(vectors)
+        if dtype is not None:
+            vec = vec.to(dtype)
     return DeviceGraph(
-        vectors=vec.to(dtype) if dtype is not None else vec,
+        vectors=vec,
         sq_norms=t(_sq_norms_np(vectors)),
         neighbors0=t(nbr0),
         upper_neighbors=t(np.array(host.upper_neighbors[:nu], np.int32)),
@@ -162,6 +191,8 @@ def to_device(host, dtype: torch.dtype | None = None,
         max_level=int(host.max_level),
         num_nodes=int(n),
         upper_ids=t(upper_ids_from_slots(upper_slot, nu)),
+        pq_codebook=pq_cb,
+        pq_rotation=pq_rot,
         m=host.p.m,
         dim=host.p.dim,
         metric=int(metric),
@@ -188,7 +219,8 @@ def from_jax_arrays(arrays: dict[str, np.ndarray], *, m: int, dim: int,
     ``labels`` ``[cap, 2]`` u32 (lo, hi) become int64 u64 bits;
     ``neighbors0`` keeps its ``cap+1`` dummy row; ``entry``, ``max_level``
     and ``num_nodes`` may be 0-d arrays. Optional fields (``upper_ids``,
-    ``upper_vectors``, ``upper_sq``) are taken when present.
+    ``upper_vectors``, ``upper_sq``, and for PQ graphs ``pq_codebook`` and
+    ``pq_rotation``) are taken when present.
     """
     dev = resolve_device(device)
     metric = Metric(metric)
@@ -199,7 +231,8 @@ def from_jax_arrays(arrays: dict[str, np.ndarray], *, m: int, dim: int,
         name: _tensor_from_np(np.asarray(arrays[name]), dev)
         for name in ("vectors", "sq_norms", "neighbors0", "upper_neighbors",
                      "upper_slot", "levels", "deleted", "upper_ids",
-                     "upper_vectors", "upper_sq")
+                     "upper_vectors", "upper_sq", "pq_codebook",
+                     "pq_rotation")
         if arrays.get(name) is not None
     }
     tensors["labels"] = torch.from_numpy(lab64.view(np.int64)).to(dev)

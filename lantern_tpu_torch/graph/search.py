@@ -1,4 +1,4 @@
-"""Batched HNSW search (port of lantern_tpu/graph/search.py, non-PQ).
+"""Batched HNSW search (port of lantern_tpu/graph/search.py).
 
 A block of Q queries searches the graph in lockstep:
 
@@ -10,6 +10,10 @@ A block of Q queries searches the graph in lockstep:
   drops ids already in the beam or in the log of expanded ids, and scores
   the rest with K1 (``ops/gather_dists.py``: the hand-written gather-distance
   kernel on the card), then merges by a stable sort that carries the payloads;
+- PQ graphs (``quant == QUANT_PQ``) score candidates by ADC instead: a
+  per-query table ``adc_lut`` built once per batch, summed over the gathered
+  codes; their entry scan is a PQ flat scan (the PQ decode kernel). Under
+  OPQ the query is rotated once, at the top of ``search_batched``;
 - termination: the HNSW criterion (best unexpanded > worst of a full beam)
   as a per-query active mask.
 
@@ -29,18 +33,20 @@ from __future__ import annotations
 import torch
 
 from lantern_tpu_torch.config import Metric, SearchParams
-from lantern_tpu_torch.flat import flat_search
-from lantern_tpu_torch.graph.device import DeviceGraph
+from lantern_tpu_torch.flat import flat_search, flat_search_pq
+from lantern_tpu_torch.graph.device import QUANT_PQ, DeviceGraph
 from lantern_tpu_torch.native import LMAX
 from lantern_tpu_torch.ops.gather_dists import gather_dists
+from lantern_tpu_torch.quant.pq import adc_distances, adc_lut
 
 _INF = float("inf")
 # beam iterations between host-side "any query still active?" checks
 _CHECK_EVERY = 4
 
 
-def _candidate_dists(graph: DeviceGraph, queries, q_sq, cand_ids):
-    """Distances from each query to its candidates through K1.
+def _candidate_dists(graph: DeviceGraph, queries, q_sq, cand_ids, lut=None):
+    """Distances from each query to its candidates: K1 for stored rows, ADC
+    for PQ codes (``lut`` [Q, S, K] from adc_lut).
 
     queries [Q, d] f32, cand_ids [Q, C] -> [Q, C] f32. Ids are clipped to
     [0, cap) here: ``vectors`` has no sentinel row, and K1 reads any id it
@@ -51,10 +57,19 @@ def _candidate_dists(graph: DeviceGraph, queries, q_sq, cand_ids):
         raise NotImplementedError(
             "hamming search waits for the hamming slice (ROADMAP queue 1)")
     ids = torch.clamp(cand_ids, 0, graph.cap - 1).to(torch.int32).contiguous()
+    if graph.quant == QUANT_PQ:
+        rows = ids.long()
+        part = adc_distances(lut, graph.vectors[rows])
+        if metric == Metric.L2SQ:
+            return part  # the LUT already holds |q_s - c_sk|^2
+        # cos: part sums dots; |x| from the decoded rows' norms
+        xn = torch.sqrt(graph.sq_norms[rows])
+        return 1.0 - part / torch.clamp(torch.sqrt(q_sq)[:, None] * xn,
+                                        min=1e-30)
     return gather_dists(graph.vectors, ids, queries, q_sq, metric)
 
 
-def _upper_descent(graph: DeviceGraph, queries, q_sq):
+def _upper_descent(graph: DeviceGraph, queries, q_sq, lut=None):
     """Greedy 1-beam descent from the entry point down to level 1.
 
     Returns (entry id [Q], its distance [Q]) for the level-0 beam. Each
@@ -66,7 +81,7 @@ def _upper_descent(graph: DeviceGraph, queries, q_sq):
     ucap, _, m = graph.upper_neighbors.shape
     flat_upper = graph.upper_neighbors.reshape(ucap * LMAX, m)
     curr = torch.full((q,), graph.entry, dtype=torch.int32, device=dev)
-    curr_d = _candidate_dists(graph, queries, q_sq, curr[:, None])[:, 0]
+    curr_d = _candidate_dists(graph, queries, q_sq, curr[:, None], lut)[:, 0]
     for lvl in range(graph.max_level, 0, -1):
         improving = torch.ones(q, dtype=torch.bool, device=dev)
         for _ in range(64):
@@ -76,7 +91,7 @@ def _upper_descent(graph: DeviceGraph, queries, q_sq):
             nbrs = flat_upper[(slot * LMAX + (lvl - 1)).long()]  # [Q, m]
             valid = nbrs >= 0
             d = _candidate_dists(graph, queries, q_sq,
-                                 torch.where(valid, nbrs, 0))
+                                 torch.where(valid, nbrs, 0), lut)
             d = torch.where(valid, d, _INF)
             j = torch.argmin(d, dim=1, keepdim=True)
             best_d = torch.gather(d, 1, j)[:, 0]
@@ -87,24 +102,32 @@ def _upper_descent(graph: DeviceGraph, queries, q_sq):
     return curr, curr_d
 
 
-def _upper_entry_scan(graph: DeviceGraph, queries, q_sq, seeds: int = 1):
+def _upper_entry_scan(graph: DeviceGraph, queries, q_sq, seeds: int = 1,
+                      lut=None):
     """Entry selection by one dense scan over the upper-level node set.
 
-    Scores every upper node (a flat scan of ~n/m rows) and returns the top
-    ``seeds`` as (entry_ids [Q, seeds] int32, entry_d [Q, seeds]). Missing
-    seeds get id -1 / dist inf; seed 0 falls back to ``graph.entry`` (scored
-    through K1) so at least one live candidate exists.
+    Scores every upper node (a flat scan of ~n/m rows; for PQ graphs the
+    PQ flat scan of their codes, with ``queries`` already rotated) and
+    returns the top ``seeds`` as (entry_ids [Q, seeds] int32, entry_d
+    [Q, seeds]). Missing seeds get id -1 / dist inf; seed 0 falls back to
+    ``graph.entry`` (scored like a candidate) so at least one live candidate
+    exists.
     """
     uids = graph.upper_ids
     safe = torch.clamp(uids, min=0).long()
     # blank slots, and planned-but-not-yet-inserted nodes of a growing graph
     excluded = (uids < 0) | (safe >= graph.num_nodes)
-    cached = graph.upper_vectors is not None and graph.upper_sq is not None
-    d, loc = flat_search(
-        graph.upper_vectors if cached else graph.vectors[safe],
-        graph.upper_sq if cached else graph.sq_norms[safe],
-        queries, k=seeds, metric=graph.metric, deleted=excluded,
-    )
+    if graph.quant == QUANT_PQ:
+        d, loc = flat_search_pq(graph.vectors[safe], graph.pq_codebook,
+                                queries, k=seeds, metric=graph.metric,
+                                deleted=excluded)
+    else:
+        cached = graph.upper_vectors is not None and graph.upper_sq is not None
+        d, loc = flat_search(
+            graph.upper_vectors if cached else graph.vectors[safe],
+            graph.upper_sq if cached else graph.sq_norms[safe],
+            queries, k=seeds, metric=graph.metric, deleted=excluded,
+        )
     found = loc >= 0
     entry_ids = torch.where(
         found, safe[torch.clamp(loc, 0, safe.shape[0] - 1).long()].int(), -1
@@ -112,7 +135,7 @@ def _upper_entry_scan(graph: DeviceGraph, queries, q_sq, seeds: int = 1):
     q = queries.shape[0]
     entry = torch.full((q, 1), graph.entry, dtype=torch.int32,
                        device=queries.device)
-    dflt = _candidate_dists(graph, queries, q_sq, entry)[:, 0]
+    dflt = _candidate_dists(graph, queries, q_sq, entry, lut)[:, 0]
     entry_ids[:, 0] = torch.where(found[:, 0], entry_ids[:, 0], graph.entry)
     entry_d = torch.where(found, d, _INF)
     entry_d[:, 0] = torch.where(found[:, 0], d[:, 0], dflt)
@@ -167,16 +190,24 @@ def search_batched(
         max_iters = 2 * ef // expand + 16
     dev = graph.device
     queries = queries.to(dev, torch.float32).contiguous()
+    if graph.quant == QUANT_PQ and graph.pq_rotation is not None:
+        # OPQ: codes live in the rotated space; rotate the query once here,
+        # every distance below (LUT, entry scan) then works in that space
+        queries = (queries @ graph.pq_rotation).contiguous()
     q = queries.shape[0]
     cap = graph.cap
     c = expand * graph.m0
     q_sq = (queries * queries).sum(1)
+    lut = None
+    if graph.quant == QUANT_PQ:
+        lut = adc_lut(queries, graph.pq_codebook, graph.metric)
 
     if graph.upper_ids is not None and graph.upper_ids.shape[0] > 1:
         seeds = max(1, min(seeds, ef))
-        entry_ids, entry_d = _upper_entry_scan(graph, queries, q_sq, seeds)
+        entry_ids, entry_d = _upper_entry_scan(graph, queries, q_sq, seeds,
+                                               lut)
     else:
-        entry_ids, entry_d = _upper_descent(graph, queries, q_sq)
+        entry_ids, entry_d = _upper_descent(graph, queries, q_sq, lut)
         entry_ids, entry_d = entry_ids[:, None], entry_d[:, None]
         seeds = 1
 
@@ -224,7 +255,8 @@ def search_batched(
         fresh = _dedup_fresh(nbrs, valid & ~(in_beam | in_log))
         visited_n += fresh.sum(1).int()
 
-        d = _candidate_dists(graph, queries, q_sq, torch.where(fresh, nbrs, 0))
+        d = _candidate_dists(graph, queries, q_sq, torch.where(fresh, nbrs, 0),
+                             lut)
         d = torch.where(fresh, d, _INF)
 
         # merge: one stable sort, payloads (ids, expanded) gathered along

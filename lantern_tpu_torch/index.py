@@ -1,14 +1,18 @@
-"""The user-facing Index facade (port of lantern_tpu/index.py, search path).
+"""The user-facing Index facade (port of lantern_tpu/index.py).
 
 One HNSW index: the native C++ engine builds the graph on the host, and
 queries run batched on the device against its mirror (``DeviceGraph``).
-Labels are arbitrary u64 external keys. This slice ports ``add`` (host
-build), ``delete``, ``search`` (auto / flat / graph, allow and deny filters,
-``with_stats``), ``rows_for_labels`` and ``size``; the rest of the reference
-facade raises NotImplementedError naming the ROADMAP item that brings it.
+Labels are arbitrary u64 external keys. Ported: ``add`` (host build),
+``delete``, ``search`` (auto / flat / graph, allow and deny filters,
+``with_stats``), ``rows_for_labels``, ``size``, and product-quantised
+indexes (``HnswParams(pq=True)``): ``train_pq``, ``search(rerank=L | "auto")``,
+``calibrate_rerank``, ``set_rerank_source``. The rest of the reference facade
+raises NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -16,10 +20,16 @@ import torch
 from lantern_tpu_torch import resolve_device
 from lantern_tpu_torch.config import HnswParams, Metric, QuantKind, SearchParams
 from lantern_tpu_torch.costmodel import choose_search_strategy, memory_budget
-from lantern_tpu_torch.flat import flat_search_graph
+from lantern_tpu_torch.flat import (
+    flat_search,
+    flat_search_graph,
+    flat_search_graph_rerank,
+    flat_search_pq,
+)
 from lantern_tpu_torch.graph.device import to_device, with_aug_norms
 from lantern_tpu_torch.graph.search import search_batched
 from lantern_tpu_torch.native import NativeHnsw
+from lantern_tpu_torch.quant.pq import pq_decode, pq_encode, train_codebook
 
 
 def _later(what: str, item: str):
@@ -37,23 +47,62 @@ class Index:
     >>> ix = Index(HnswParams(dim=128))      # on cuda; device="cpu" to test
     >>> ix.add(vectors)                      # host build (native engine)
     >>> dists, labels = ix.search(queries)   # batched on the device
+
+    PQ: ``Index(HnswParams(dim=128, pq=True))`` stores uint8 codes on the
+    device. ``add`` trains the codebook on its first batch unless
+    ``train_pq`` ran first, builds the host graph over the decoded rows, and
+    (``keep_raw=True``) keeps the f32 rows on the host as the rerank source.
     """
 
     def __init__(self, params: HnswParams, capacity: int = 1024, seed: int = 0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 keep_raw: bool = True):
         self.device = resolve_device(device)
-        if params.pq:
-            raise NotImplementedError("PQ indexes: ROADMAP queue 1, the PQ slice")
         if Metric(params.metric) == Metric.HAMMING:
             raise NotImplementedError("hamming indexes: ROADMAP queue 1, hamming")
         if params.quant not in (QuantKind.F32, QuantKind.F16):
             raise NotImplementedError(
-                f"quant={QuantKind(params.quant).name}: ROADMAP queue 1, the "
-                "PQ / scalar-quant slice")
+                f"quant={QuantKind(params.quant).name}: ROADMAP queue 1, i8 "
+                "scalar quantisation (b1 with hamming)")
         self.params = params
         self._eng = NativeHnsw(params, capacity=capacity, seed=seed)
         self._graph = None  # cached device mirror
         self._label_sort = None  # cached sorted-label lookup
+        self._codebook = None  # PQCodebook when params.pq
+        # host f32 rows, row-aligned with the engine, for PQ rerank (the
+        # reference's heap table beside its PQ index); chunks append O(1)
+        # and are joined at first use
+        self._keep_raw = keep_raw
+        self._rerank_chunks: list[np.ndarray] = []
+        self._rerank_rows = None  # cached concatenation of the chunks
+        self._rerank_dev = None  # cached bf16 copy of the rows on the device
+        # calibrated depth for rerank="auto": (depth, coverage, size then)
+        self._rerank_auto = None
+
+    # ---- PQ ----
+    def train_pq(self, training_data: np.ndarray, iters: int = 25,
+                 seed: int = 0, rotate: bool = False, opq_iters: int = 16):
+        """Train the PQ codebook on the device (before ``add``, or ``add``
+        trains on its first batch). ``rotate=True`` learns an OPQ rotation."""
+        if not self.params.pq:
+            raise ValueError("index was not created with pq=True")
+        self._codebook = train_codebook(
+            np.asarray(training_data, np.float32),
+            num_subvectors=self.params.effective_num_subvectors,
+            num_centroids=self.params.num_centroids, iters=iters, seed=seed,
+            rotate=rotate, opq_iters=opq_iters, device=self.device)
+        return self._codebook
+
+    def _preprocess(self, vectors: np.ndarray) -> np.ndarray:
+        """PQ indexes build the host graph over the decoded rows, the same
+        representation the device searches."""
+        vectors = np.asarray(vectors)
+        if not self.params.pq:
+            return vectors
+        if self._codebook is None:
+            self.train_pq(vectors)  # auto-train on the first batch
+        return pq_decode(pq_encode(vectors, self._codebook, device=self.device),
+                         self._codebook)
 
     # ---- ingest ----
     def add(self, vectors: np.ndarray, labels: np.ndarray | None = None,
@@ -64,7 +113,9 @@ class Index:
             raise NotImplementedError(
                 "build='device' waits for the device-builder slice (ROADMAP "
                 "queue 1)")
-        vectors = np.asarray(vectors)
+        raw = (np.asarray(vectors, np.float32)
+               if self.params.pq and self._keep_raw else None)
+        vectors = self._preprocess(vectors)
         if labels is None:
             labels = np.arange(self.size, self.size + len(vectors),
                                dtype=np.uint64)
@@ -72,8 +123,42 @@ class Index:
         if need > self._eng._cap:
             self._grow(need)
         self._eng.add(vectors, labels=labels, nthreads=nthreads)
+        if raw is not None:
+            self._rerank_chunks.append(raw)
+            self._rerank_rows = None
+            self._rerank_dev = None
         self._graph = None
         return self
+
+    def set_rerank_source(self, rows: np.ndarray):
+        """Supply the full-precision rows (row-aligned with the engine) that
+        PQ rerank re-scores against."""
+        rows = np.asarray(rows, np.float32)
+        if len(rows) != self.size:
+            raise ValueError(
+                f"rerank source has {len(rows)} rows, index has {self.size}")
+        self._rerank_chunks = [rows]
+        self._rerank_rows = rows
+        self._rerank_dev = None
+        return self
+
+    @property
+    def _raw_rows(self) -> np.ndarray | None:
+        """The concatenated rerank source (cached)."""
+        if self._rerank_rows is None and self._rerank_chunks:
+            self._rerank_rows = (
+                self._rerank_chunks[0] if len(self._rerank_chunks) == 1
+                else np.concatenate(self._rerank_chunks))
+            self._rerank_chunks = [self._rerank_rows]
+        return self._rerank_rows
+
+    def _checked_raw_rows(self) -> np.ndarray:
+        rows = self._raw_rows
+        if rows is None:
+            raise ValueError(
+                "no rerank source: rows are captured by add(), or supply "
+                "them via set_rerank_source()")
+        return rows
 
     def _grow(self, need: int):
         """Rebuild-free capacity growth (usearch_reserve doubling)."""
@@ -95,9 +180,14 @@ class Index:
     def device_graph(self):
         """The cached device mirror, rebuilt after any mutation."""
         if self._graph is None:
-            dtype = torch.bfloat16 if self.params.quant == QuantKind.F16 else None
-            self._graph = with_aug_norms(
-                to_device(self._eng, dtype=dtype, device=self.device))
+            if self.params.pq:
+                g = to_device(self._eng, device=self.device,
+                              pq_codebook=self._codebook)
+            else:
+                dtype = (torch.bfloat16 if self.params.quant == QuantKind.F16
+                         else None)
+                g = to_device(self._eng, dtype=dtype, device=self.device)
+            self._graph = with_aug_norms(g)
         return self._graph
 
     def search(
@@ -107,6 +197,7 @@ class Index:
         ef: int | None = None,
         params: SearchParams | None = None,
         mode: str = "auto",
+        rerank: int | str | None = None,
         with_stats: bool = False,
         allow_labels: np.ndarray | None = None,
         deny_labels: np.ndarray | None = None,
@@ -117,6 +208,9 @@ class Index:
 
         ``mode``: 'flat' = dense scan, 'graph' = batched HNSW beam search,
         'auto' = cost-model dispatch (costmodel.choose_search_strategy).
+        ``rerank`` (PQ indexes): keep an ADC shortlist of this size, then
+        re-score it on the device against a bf16 copy of the full-precision
+        rows; ``"auto"`` sizes the shortlist by ``calibrate_rerank``.
         ``with_stats=True`` appends a dict describing the executed plan: the
         mode, plus per-query visited / expanded counts for the graph.
         ``allow_labels`` / ``deny_labels``: predicate filters. The flat scan
@@ -142,6 +236,14 @@ class Index:
                 rows = self.rows_for_labels(deny_labels)
                 mask[rows[rows >= 0]] = True
             exclude = torch.from_numpy(mask).to(self.device)
+        if rerank is not None:
+            if rerank == "auto":
+                rerank = self._auto_rerank_depth(k)
+            res = self._search_rerank(q, k, rerank, exclude)
+            if with_stats:
+                return (*res, {"mode": "flat_pq_rerank", "shortlist": rerank,
+                               "rows_scanned": n})
+            return res
         if mode == "auto":
             mode = choose_search_strategy(
                 n, graph.vectors.shape[1], graph.vectors.element_size(),
@@ -182,11 +284,91 @@ class Index:
     def size(self) -> int:
         return self._eng.n
 
-    # ---- not ported in this slice ----
-    train_pq = _later("train_pq", "ROADMAP queue 1, the PQ slice")
-    calibrate_rerank = _later("calibrate_rerank", "ROADMAP queue 1, the PQ slice")
-    set_rerank_source = _later("set_rerank_source",
-                               "ROADMAP queue 1, the PQ slice")
+    # ---- PQ rerank ----
+    def _auto_rerank_depth(self, k: int) -> int:
+        """rerank="auto": calibrate once, again after the index grew >2x."""
+        if (self._rerank_auto is None
+                or self.size > 2 * max(self._rerank_auto[2], 1)):
+            self.calibrate_rerank(k=k)
+        return self._rerank_auto[0]
+
+    def calibrate_rerank(self, k: int = 10, sample: int = 256,
+                         target: float = 0.99,
+                         ladder: tuple[int, ...] = (100, 300, 600, 1200, 2400),
+                         seed: int = 0) -> dict:
+        """Size the PQ rerank shortlist from measured ADC coverage.
+
+        ``sample`` stored rows serve as queries; their true top-k comes from
+        an exact full-f32 scan of the rerank source, copied whole to the
+        device for it (fault F3 of the reference, kept); coverage@L is the
+        share of true ids inside the ADC top-L of the production scan. The
+        smallest ladder depth with coverage >= ``target`` wins, else the
+        deepest (with a warning). Returns {"depth", "coverage", "coverages",
+        "sample", "k"} and caches the depth for ``search(rerank="auto")``.
+        """
+        if not self.params.pq:
+            raise ValueError("calibrate_rerank applies to PQ indexes only")
+        rows = self._checked_raw_rows()
+        n = self.size
+        sample = min(sample, n)
+        ladder = tuple(s for s in ladder if s >= k) or (max(ladder),)
+        smax = min(max(ladder), n)
+        rng = np.random.default_rng(seed)
+        q = torch.from_numpy(rows[rng.choice(n, size=sample, replace=False)])
+        q = q.to(self.device)
+        metric = int(self.params.metric)
+        g = self.device_graph
+        dele = g.deleted[:n] if bool(g.deleted[:n].any()) else None
+        vecs = torch.from_numpy(rows).to(self.device)
+        sqn = torch.from_numpy(
+            np.einsum("nd,nd->n", rows, rows).astype(np.float32)).to(self.device)
+        _, true_ids = flat_search(vecs, sqn, q, k=k, metric=metric, exact=True,
+                                  deleted=dele)
+        del vecs, sqn
+        _, sl_ids = flat_search_pq(g.vectors[:n], g.pq_codebook, q, k=smax,
+                                   metric=metric, deleted=dele,
+                                   rotation=g.pq_rotation)
+        true_np, sl_np = true_ids.cpu().numpy(), sl_ids.cpu().numpy()
+        # rank of each true id within the shortlist (absent -> inf)
+        match = (sl_np[:, None, :] == true_np[:, :, None]) & (
+            sl_np[:, None, :] >= 0)
+        pos = np.where(match.any(2), match.argmax(2), np.inf)
+        coverages = {s: float((pos < min(s, smax)).mean()) for s in ladder}
+        depth = next((s for s in ladder if coverages[s] >= target),
+                     max(ladder))
+        if coverages[depth] < target:
+            logging.getLogger(__name__).warning(
+                "rerank auto-calibration: coverage@%d = %.4f < target %s; "
+                "recall will be capped", depth, coverages[depth], target)
+        self._rerank_auto = (int(depth), coverages[depth], n)
+        return {
+            "depth": int(depth),
+            "coverage": round(coverages[depth], 4),
+            "coverages": {str(s): round(c, 4) for s, c in coverages.items()},
+            "sample": sample,
+            "k": k,
+        }
+
+    def _search_rerank(self, q, k: int, shortlist: int, exclude=None):
+        """ADC shortlist + exact re-score on the device (see search); the
+        rows are cached there as bf16."""
+        if not self.params.pq:
+            raise ValueError("rerank= applies to PQ indexes only")
+        rows = self._checked_raw_rows()
+        if len(rows) != self.size:
+            raise ValueError(
+                f"rerank source has {len(rows)} rows but the index has "
+                f"{self.size}; supply the full slot-aligned rows via "
+                "set_rerank_source()")
+        if self._rerank_dev is None or self._rerank_dev.shape[0] != len(rows):
+            self._rerank_dev = torch.from_numpy(rows).to(self.device).to(
+                torch.bfloat16)
+        d, _, labels = flat_search_graph_rerank(
+            self.device_graph, self._rerank_dev, q, k=k,
+            shortlist=max(shortlist, k), exclude=exclude)
+        return d.cpu().numpy(), labels.cpu().numpy().view(np.uint64)
+
+    # ---- not ported yet ----
     search_streaming = _later("search_streaming",
                               "ROADMAP queue 1, the facade remainder")
     compact = _later("compact", "ROADMAP queue 1, the facade remainder")

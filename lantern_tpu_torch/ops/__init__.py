@@ -13,3 +13,8 @@ from lantern_tpu_torch.ops.gather_dists import (  # noqa: F401
     gather_dists,
     gather_dists_ref,
 )
+from lantern_tpu_torch.ops.pq_decode import (  # noqa: F401
+    codebook_bf16,
+    pq_decode,
+    pq_decode_ref,
+)

@@ -4,10 +4,17 @@ Both build the same graph (nthreads=1). Flat search must return the same
 labels (distances within 1e-4 abs + 1e-5 rel); graph search, where the
 reference runs its own einsum beam, must reach the same recall@10 against
 exact ground truth within 0.01. Filters and deletes go through both.
+
+PQ indexes (plain l2sq, cos, OPQ) are given the reference's codebook, so
+both build the same graph over the same decoded rows: every mode (flat,
+graph, rerank=L, rerank="auto") returns the same labels (up to the order
+of exactly tied distances; distances within 1e-4 abs + 1e-4 rel), and
+calibrate_rerank picks the same depth from the same coverages.
 """
 
 import numpy as np
 import pytest
+import torch
 
 import lantern_tpu
 import lantern_tpu_torch
@@ -98,8 +105,8 @@ def test_rows_for_labels_and_size(pair):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="PQ"):
-        lantern_tpu_torch.Index(HnswParams(dim=8, pq=True, num_subvectors=2),
+    with pytest.raises(NotImplementedError, match="I8"):
+        lantern_tpu_torch.Index(HnswParams(dim=8, quant=QuantKind.I8),
                                 device="cpu")
     with pytest.raises(NotImplementedError, match="hamming"):
         lantern_tpu_torch.Index(
@@ -108,6 +115,111 @@ def test_unported_parts_raise():
     ix = lantern_tpu_torch.Index(HnswParams(dim=8), device="cpu")
     with pytest.raises(NotImplementedError, match="device-builder"):
         ix.add(np.ones((4, 8), np.float32), build="device")
-    for name in ("save", "compact", "search_streaming", "train_pq"):
+    for name in ("save", "compact", "search_streaming"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(ix, name)()
+
+
+PQ_CONFIGS = {
+    "pq": dict(),
+    "pq_cos": dict(metric=Metric.COS),
+    "opq": dict(rotate=True),
+}
+
+
+def _same_labels(lab, want, d):
+    """Labels equal, except that exactly tied distances may swap."""
+    tied = np.zeros(d.shape, bool)
+    tied[:, 1:] |= d[:, 1:] == d[:, :-1]
+    tied[:, :-1] |= d[:, :-1] == d[:, 1:]
+    assert ((lab == want) | tied).all(), (lab, want)
+    np.testing.assert_array_equal(np.sort(lab, 1), np.sort(want, 1))
+
+
+@pytest.fixture(scope="module", params=sorted(PQ_CONFIGS))
+def pq_pair(request):
+    from lantern_tpu_torch.quant.pq import PQCodebook
+
+    cfg = dict(PQ_CONFIGS[request.param])
+    rotate = cfg.pop("rotate", False)
+    rng = np.random.default_rng(9)
+    base = rng.standard_normal((1200, 32)).astype(np.float32)
+    q = rng.standard_normal((30, 32)).astype(np.float32)
+    labels = np.arange(len(base), dtype=np.uint64) * np.uint64(5) + np.uint64(3)
+    p = HnswParams(dim=32, m=8, ef_construction=48, pq=True, num_subvectors=8,
+                   num_centroids=32, **cfg)
+    ref = lantern_tpu.Index(p, capacity=256, seed=0)
+    cb = ref.train_pq(base, iters=8, rotate=rotate, opq_iters=3)
+    port = lantern_tpu_torch.Index(p, capacity=256, seed=0, device="cpu")
+    port._codebook = PQCodebook(np.array(cb.centroids),
+                                None if cb.rotation is None
+                                else np.array(cb.rotation))
+    for ix in (ref, port):
+        ix.add(base, labels=labels, nthreads=1)
+        ix.delete(labels[::11])
+    return request.param, ref, port, q, labels
+
+
+@pytest.mark.parametrize("kw", [dict(mode="flat"), dict(mode="graph"),
+                                dict(rerank=60), dict(rerank="auto")],
+                         ids=["flat", "graph", "rerank60", "rerank_auto"])
+def test_pq_search_matches_reference(pq_pair, kw):
+    _, ref, port, q, labels = pq_pair
+    wd, wl = ref.search(q, k=K, **kw)
+    d, lab, stats = port.search(q, k=K, with_stats=True, **kw)
+    assert lab.dtype == np.uint64
+    _same_labels(lab, wl, d)
+    np.testing.assert_allclose(d, wd, rtol=1e-4, atol=1e-4)
+    assert not set(labels[::11].tolist()) & set(lab.ravel().tolist())
+    if "rerank" in kw:
+        assert stats["mode"] == "flat_pq_rerank"
+        assert stats["shortlist"] == (60 if kw["rerank"] == 60
+                                      else port._rerank_auto[0])
+
+
+def test_pq_calibration_matches_reference(pq_pair):
+    _, ref, port, _, _ = pq_pair
+    want = ref.calibrate_rerank(k=K, sample=64, ladder=(20, 40, 80, 160))
+    got = port.calibrate_rerank(k=K, sample=64, ladder=(20, 40, 80, 160))
+    assert got == want
+
+
+def test_pq_auto_picks_flat_and_filters(pq_pair):
+    _, ref, port, q, labels = pq_pair
+    _, lab, stats = port.search(q, k=K, with_stats=True,
+                                allow_labels=labels[:500])
+    assert stats["mode"] == "flat"
+    _, wl = ref.search(q, k=K, mode="flat", allow_labels=labels[:500])
+    np.testing.assert_array_equal(np.sort(lab, 1), np.sort(wl, 1))
+    assert set(lab.ravel().tolist()) <= set(labels[:500].tolist())
+
+
+def test_pq_add_trains_on_first_batch_and_keeps_raw_rows():
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal((300, 16)).astype(np.float32)
+    p = HnswParams(dim=16, m=8, ef_construction=32, pq=True,
+                   num_centroids=16)  # S = dim / 4 by default
+    ix = lantern_tpu_torch.Index(p, capacity=64, device="cpu")
+    ix.add(base[:200], nthreads=1)
+    assert ix._codebook.centroids.shape == (4, 16, 4)
+    ix.add(base[200:], nthreads=1)
+    g = ix.device_graph
+    assert g.vectors.dtype == torch.uint8 and g.vectors.shape == (300, 4)
+    np.testing.assert_array_equal(ix._raw_rows, base)
+    d, lab = ix.search(base[:5], k=3, rerank=20)
+    np.testing.assert_array_equal(lab[:, 0], np.arange(5, dtype=np.uint64))
+    np.testing.assert_allclose(d[:, 0], 0.0, atol=1e-3)  # bf16 self-match
+    nokeep = lantern_tpu_torch.Index(p, capacity=64, device="cpu",
+                                     keep_raw=False)
+    nokeep.train_pq(base[:200])  # the same codebook as the first batch's
+    nokeep.add(base, nthreads=1)
+    with pytest.raises(ValueError, match="rerank source"):
+        nokeep.search(base[:2], rerank=10)
+    nokeep.set_rerank_source(base)
+    np.testing.assert_array_equal(nokeep.search(base[:2], k=3, rerank=20)[1],
+                                  ix.search(base[:2], k=3, rerank=20)[1])
+    with pytest.raises(ValueError, match="rows"):
+        nokeep.set_rerank_source(base[:10])
+    with pytest.raises(ValueError, match="pq=True"):
+        lantern_tpu_torch.Index(HnswParams(dim=8), device="cpu").train_pq(
+            base[:, :8])

@@ -61,7 +61,9 @@ def graphs():
     return out, q
 
 
-def _compare(g, q, **kw):
+def _compare(g, q, ties=False, **kw):
+    """Search g with both packages; ids equal (``ties=True``: equal up to the
+    order of exactly tied distances, which PQ rows with equal codes give)."""
     gp = dataclasses.replace(g, use_pallas=True)
     jd, ji, jl, js = jax_search(gp, jnp.asarray(q), with_stats=True, **kw)
     ex = kw.pop("exclude", None)
@@ -71,11 +73,23 @@ def _compare(g, q, **kw):
     td, ti, tl, ts = search_batched(_port(g), torch.from_numpy(q),
                                     with_stats=True, **kw)
     assert gather_dists.launches == 0  # CPU tensors take the plain version
-    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    same = ti.numpy() == np.asarray(ji)
+    if ties:
+        d = td.numpy()
+        tied = np.zeros(d.shape, bool)
+        tied[:, 1:] |= d[:, 1:] == d[:, :-1]
+        tied[:, :-1] |= d[:, :-1] == d[:, 1:]
+        same |= tied
+        np.testing.assert_array_equal(np.sort(ti.numpy(), 1),
+                                      np.sort(np.asarray(ji), 1))
+    assert same.all(), (ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=RTOL, atol=ATOL)
     jlab = np.asarray(jl)
     want = jlab[..., 0].astype(np.uint64) | (jlab[..., 1].astype(np.uint64) << 32)
-    np.testing.assert_array_equal(tl.numpy().view(np.uint64), want)
+    lab = tl.numpy().view(np.uint64)
+    if ties:
+        lab, want = np.sort(lab, 1), np.sort(want, 1)
+    np.testing.assert_array_equal(lab, want)
     for key in ("iterations", "visited", "expanded"):
         np.testing.assert_array_equal(ts[key].numpy(), np.asarray(js[key]))
     return ti.numpy()
@@ -133,3 +147,47 @@ def test_port_reaches_host_build_golden():
     hits = sum(len(set(f[f >= 0].tolist()) & set(t.tolist()))
                for f, t in zip(ids.numpy(), gt))
     assert hits / gt.size >= 0.866 - 0.01
+
+
+@pytest.fixture(scope="module")
+def pq_graphs():
+    """Reference PQ graphs (plain and OPQ codebooks) over the decoded rows
+    of clustered data, built with nthreads=1."""
+    from lantern_tpu.quant.pq import pq_decode, pq_encode, train_codebook
+
+    rng = np.random.default_rng(0xA47E60DC)
+    base, q = _data(rng, 800, 32)
+    out = {}
+    for name, rotate, metric in (("l2sq", False, Metric.L2SQ),
+                                 ("cos", False, Metric.COS),
+                                 ("opq", True, Metric.L2SQ)):
+        cb = train_codebook(base, 8, 32, iters=8, seed=0, rotate=rotate,
+                            opq_iters=3)
+        eng = JaxNativeHnsw(HnswParams(dim=32, m=8, ef_construction=48,
+                                       metric=metric), capacity=800, seed=0)
+        eng.add(pq_decode(pq_encode(base, cb), cb), nthreads=1)
+        out[name] = jax_to_device(eng, pq_codebook=cb)
+    return out, q
+
+
+@pytest.mark.parametrize("case", ["l2sq", "cos", "opq", "tombstones",
+                                  "upper_descent", "expand2"])
+def test_pq_search_matches_reference(pq_graphs, case):
+    """The ADC beam (and its PQ entry scan) on a reference PQ graph carried
+    across with from_jax_arrays: ids equal up to exact ties, stats equal."""
+    from lantern_tpu_torch.ops.pq_decode import pq_decode
+
+    graphs, q = pq_graphs
+    g = graphs.get(case, graphs["l2sq"])
+    kw = dict(k=10, ef=32, seeds=8)
+    if case == "tombstones":
+        mask = np.random.default_rng(1).random(g.cap) < 0.25
+        g = g.replace(deleted=jnp.asarray(mask))
+    elif case == "upper_descent":
+        g = g.replace(upper_ids=None)
+        kw["seeds"] = 1
+    elif case == "expand2":
+        kw["expand"] = 2
+    pq_decode.launches = 0
+    _compare(g, q, ties=True, **kw)
+    assert pq_decode.launches == 0  # CPU tensors: the plain decode
