@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (lantern_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--n ROWS] [--seed SEED]
+    python3 chip_smoke.py [--n ROWS] [--i8-n ROWS] [--seed SEED]
 
 Phases, each of which exits non-zero on failure:
 
-1. environment: torch, the card, ``nvidia-smi`` name and power limit;
-2. build, in parallel: the K1 kernel (``csrc/gather_dists.cu``) and the PQ
-   decode kernel (``csrc/pq_decode.cu``), nvcc for sm_90a, and the native
-   host engine (g++), all from this checkout's sources;
+1. environment: torch, the card, ``nvidia-smi`` name, power limit and
+   maximum SM clock;
+2. build, in parallel: the K1 kernel (``csrc/gather_dists.cu``), the PQ
+   decode kernel (``csrc/pq_decode.cu``) and the hamming kernel K4
+   (``csrc/hamming.cu``), nvcc for sm_90a, and the native host engine (g++),
+   all from this checkout's sources;
 3. K1 against its plain PyTorch version on the card at the beam's shapes
    (N = n rows, d = 128, Q = 1024, C in {1, 32}; f32 and bf16; l2sq and cos),
    tolerance 1e-5 relative + 1e-4 absolute, then timed (device time from
@@ -33,7 +35,24 @@ Phases, each of which exits non-zero on failure:
 7. a small OPQ index at ``examples/pq_rerank.py``'s configuration (dim 96,
    24 subspaces, K=64, ``train_pq(rotate=True)``) over 100k rows: flat,
    graph and rerank through the kernel's K3 shape and the rotation;
-8. one JSON line of kernel numbers, the ``nvidia-smi`` line, and last the
+8. K4 against its plain version on the card, bit-equal, at ragged shapes
+   (Q and N off the tiles; W = 1, 3, 4, 32, 48, 128 words) and the flat
+   scan's shape (Q = 1024, N = n, W = 32), then timed there beside its
+   bound, its popcount floor, its plain version and a +-1 bf16 matmul
+   yardstick; ``hamming_exact_topk`` against a top-k of the plain distances;
+9. the hamming main path: ``Index(HnswParams(dim=1024, metric=HAMMING,
+   quant=B1))`` over n clustered 1024-bit rows (4096 random centres, each
+   bit flipped with p = 1/8) given as packed uint32 words, built on all
+   host cores, searched flat and graph (k=10, ef=64, 8 seeds) on 1024-query
+   batches; ground truth from ``hamming_exact_topk``; returned distances
+   equal to host-recomputed ones; tie-aware recall@10 floors; K4 launches
+   per batch; one batch given as float +-1 rows returns the same labels;
+10. the i8 main path: ``Index(HnswParams(dim=128, quant=I8))`` over the f32
+   phase's rows (``--i8-n`` of them), flat and graph, recall@10 against the
+   f32 truth and (flat) against an exact scan of the dequantised rows; no
+   kernel launches (K1 and the decode kernel are bypassed, as in the
+   reference);
+11. one JSON line of kernel numbers, the ``nvidia-smi`` line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
 Needs the ``lantern_tpu_torch`` package beside it and a CUDA device; never
@@ -53,17 +72,24 @@ import numpy as np
 import torch
 
 from lantern_tpu_torch import HnswParams, Index
-from lantern_tpu_torch.config import Metric
+from lantern_tpu_torch.config import Metric, QuantKind
 from lantern_tpu_torch.csrc.build import library_path
 from lantern_tpu_torch.native import get_lib
-from lantern_tpu_torch.ops.distance import exact_search
+from lantern_tpu_torch.ops.distance import exact_search, unpack_bits
 from lantern_tpu_torch.ops.gather_dists import gather_dists, gather_dists_ref
+from lantern_tpu_torch.ops.hamming import (
+    hamming_block,
+    hamming_block_ref,
+    hamming_exact_topk,
+)
 from lantern_tpu_torch.ops.pq_decode import codebook_bf16, pq_decode, pq_decode_ref
 
 DIM, K, BATCH, N_BATCHES = 128, 10, 1024, 4
 RTOL, ATOL = 1e-5, 1e-4
-# one H100 SXM's published peaks: HBM bytes/s and f32 (non-tensor-core) flop/s
-PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+# one H100 SXM's published peaks: HBM bytes/s, f32 (non-tensor-core) flop/s,
+# int8 tensor-core op/s; and its 132 SMs at 16 popcounts per clock each
+PEAK_BYTES_PER_S, PEAK_F32_FLOPS, PEAK_INT8_OPS = 3.35e12, 67e12, 1979e12
+SMS, POPC_PER_CLOCK_PER_SM = 132, 16
 FLAT_RECALL_MIN, GRAPH_RECALL_MIN = 0.999, 0.90
 # PQ decode cases (rows, S, K, dsub); the first is the main path's block shape
 PQ_CASES = [(1_000_000, 32, 256, 4), (200_000, 240, 256, 4),
@@ -71,6 +97,14 @@ PQ_CASES = [(1_000_000, 32, 256, 4), (200_000, 240, 256, 4),
 PQ_XSQ_RTOL = 1e-5
 PQ_AUTO_RECALL_MIN = 0.90  # rerank="auto" recall@10 floor on the PQ path
 OPQ_N, OPQ_DIM = 100_000, 96
+# K4 cases (Q, N, W): ragged Q and N; 1, 3, 4 words; 1024, 1536, 4096 bits
+K4_CASES = [(37, 333, 1), (1000, 99_991, 3), (1024, 65_537, 4),
+            (1023, 100_003, 32), (77, 20_011, 48), (1024, 30_001, 128)]
+HAM_DIM, HAM_CENTRES = 1024, 4096
+HAM_WORDS = HAM_DIM // 32
+HAM_FLAT_RECALL_MIN, HAM_GRAPH_RECALL_MIN = 0.999, 0.90
+I8_RECALL_MIN = 0.85  # the reference's own i8 floor (tests/test_quant.py:79)
+I8_DEQ_FLAT_RECALL_MIN = 0.98
 
 
 def fail(msg: str) -> None:
@@ -82,7 +116,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, inputs, warm: int = 3) -> float:
+def cuda_ms(fn, inputs, warm: int = 3, reps: int | None = None) -> float:
     """Mean ms per call of fn(x) over ``inputs`` (cycled so the 50 MB L2
     cache cannot hold the working set), timed with CUDA events."""
     for x in inputs[:warm]:
@@ -90,7 +124,7 @@ def cuda_ms(fn, inputs, warm: int = 3) -> float:
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
-    reps = 5 * len(inputs)
+    reps = reps or 5 * len(inputs)
     start.record()
     for i in range(reps):
         fn(inputs[i % len(inputs)])
@@ -99,20 +133,55 @@ def cuda_ms(fn, inputs, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, inputs, warm: int = 3):
+def _recorded(ev) -> bool:
+    return any(e.self_device_time_total > 0 for e in ev)
+
+
+def profiled(step, complete=_recorded, tries: int = 3):
+    """torch.profiler's per-kernel averages over the second of two runs of
+    ``step()`` in one session; the first is a warm-up, because sessions
+    late in a long run lost kernels (a K4 time under its popcount floor, a
+    flat batch profile without its matmul). A session whose record fails
+    ``complete`` (by default: no device time at all, seen once in a graph
+    batch) is run again; [] if every try fails."""
+    for _ in range(tries):
+        got = {}
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                on_trace_ready=lambda p: got.setdefault("ev", p.key_averages()),
+        ) as prof:
+            for _ in range(2):
+                step()
+                torch.cuda.synchronize()
+                prof.step()
+        ev = got.get("ev", [])
+        if complete(ev):
+            return ev
+    return []
+
+
+def device_ms(fn, inputs, per_call: int | None = None):
     """Mean device time per call of fn(x): the summed durations of the CUDA
-    kernels torch.profiler records over the calls, or None if it records
-    none (then only the CUDA-event time stands)."""
-    for x in inputs[:warm]:
-        fn(x)
-    torch.cuda.synchronize()
+    kernels torch.profiler records over the calls. The record must hold
+    every launch: ``per_call`` launches a call where that is known (1 for a
+    kernel's wrapper), else a whole multiple of the calls. A session that
+    lost a launch would time the kernel too fast, so it is run again; None
+    if no try records them all (then only the CUDA-event time stands)."""
     reps = 5 * len(inputs)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    def calls():  # drops each output before the next call
         for i in range(reps):
             fn(inputs[i % len(inputs)])
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
+
+    def complete(ev):
+        n = sum(e.count for e in ev if e.self_device_time_total > 0)
+        return n > 0 and (n == reps * per_call if per_call else n % reps == 0)
+
+    us = sum(e.self_device_time_total for e in profiled(calls, complete))
+    if us == 0:
+        log("device_ms: torch.profiler lost launches in every try; the "
+            "CUDA-event time stands")
     return us / 1e3 / reps if us > 0 else None
 
 
@@ -129,29 +198,34 @@ def clustered(rng, n, n_centers=4096, jitter=0.35):
 def phase_environment():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    def query(fields):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[0]
+
+    smi = query("name,power.limit")
+    clock = query("clocks.max.sm")  # e.g. "1980 MHz"
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     log(f"device {torch.cuda.get_device_name(0)} count "
         f"{torch.cuda.device_count()} capability "
         f"{torch.cuda.get_device_capability(0)}")
-    log(f"nvidia-smi: {smi}")
-    return smi
+    log(f"nvidia-smi: {smi}, clocks.max.sm {clock}")
+    return smi, float(clock.split()[0]) * 1e6
 
 
 def phase_build():
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         kernels = {name: pool.submit(library_path, name)
-                   for name in ("gather_dists", "pq_decode")}
+                   for name in ("gather_dists", "pq_decode", "hamming")}
         native = pool.submit(get_lib)
         sos = {name: f.result() for name, f in kernels.items()}
         native.result()
-    log("build: lantern_tpu_torch/csrc/{gather_dists,pq_decode}.cu (nvcc "
-        f"sm_90a) and the native engine (g++) in {time.perf_counter() - t0:.2f} s")
+    log("build: lantern_tpu_torch/csrc/{gather_dists,pq_decode,hamming}.cu "
+        f"(nvcc sm_90a) and the native engine (g++) in "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, so in sos.items():
         with open(so + ".log") as f:
             for line in f:
@@ -193,7 +267,8 @@ def phase_kernel(base_dev, queries_dev, seed):
                     # device: kernel time alone; call: CUDA events around
                     # back-to-back calls, so host overhead shows when larger
                     times[key + "call_ms"] = cuda_ms(fn, id_sets)
-                    times[key + "device_ms"] = device_ms(fn, id_sets)
+                    times[key + "device_ms"] = device_ms(
+                        fn, id_sets, per_call=1 if key == "" else None)
                     times[key + "ms"] = (times[key + "device_ms"]
                                          or times[key + "call_ms"])
                 itemsize = vec.element_size()
@@ -253,7 +328,8 @@ def phase_pq_kernel(seed):
         times = {}
         for key, (fn, inputs) in fns.items():
             times[key + "call_ms"] = cuda_ms(fn, inputs)
-            times[key + "device_ms"] = device_ms(fn, inputs)
+            times[key + "device_ms"] = device_ms(
+                fn, inputs, per_call=1 if key == "" else None)
             times[key + "ms"] = times[key + "device_ms"] or times[key + "call_ms"]
         del idx_sets
         # each input read once, each output written once: codes, the bf16
@@ -363,14 +439,16 @@ def pq_exact_dists(graph, queries_dev, ids):
 
 def timed_modes(ix, batches, modes, gt_i, check=None):
     """Search every batch in each mode (one warm-up batch first); returns
-    {name: result} with QPS, ms/batch, recall@10 and launches per batch.
-    ``check(name, dists, ids)``, when given, holds the returned distances."""
+    {name: result} with QPS, ms/batch, recall@10 and each kernel's launches
+    per batch. ``check(name, dists, ids)``, when given, holds the returned
+    distances and may return more fields for the result."""
     results = {}
     nq = sum(len(b) for b in batches)
     for name, kw in modes.items():
         ix.search(batches[0], k=K, **kw)  # warm-up
         torch.cuda.synchronize()
-        pq0, k10 = pq_decode.launches, gather_dists.launches
+        pq0, k10, k40 = (pq_decode.launches, gather_dists.launches,
+                         hamming_block.launches)
         labels, dists = [], []
         t0 = time.perf_counter()
         for b in batches:
@@ -383,15 +461,16 @@ def timed_modes(ix, batches, modes, gt_i, check=None):
         if labels.shape != (nq, K) or not np.isfinite(dists).all():
             fail(f"{name}: results of shape {labels.shape} or non-finite dists")
         ids = labels.astype(np.int64)  # default labels are the row numbers
-        if check is not None:
-            check(name, dists, ids)
+        extra = check(name, dists, ids) if check is not None else None
         res = dict(mode=name, queries=nq, batch=BATCH, qps=nq / secs,
                    ms_per_batch=secs / len(batches) * 1e3,
                    recall_at_10=recall(ids, gt_i),
                    pq_decode_launches_per_batch=(pq_decode.launches - pq0)
                    / len(batches),
                    k1_launches_per_batch=(gather_dists.launches - k10)
-                   / len(batches))
+                   / len(batches),
+                   k4_launches_per_batch=(hamming_block.launches - k40)
+                   / len(batches), **(extra or {}))
         results[name] = res
         log("search " + json.dumps(res))
     return results
@@ -515,14 +594,255 @@ def phase_opq(seed):
         fail("opq: rerank recall below the ADC scan's")
 
 
+def random_words(gen, rows, w):
+    """[rows, w] int32 words of uniform random bits (about half >= 2^31)."""
+    return torch.randint(-2**31, 2**31, (rows, w), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+def pm1_bf16(words, dim):
+    """Unpack [N, W] words to +-1 bf16 [N, dim] (bit set -> +1), in chunks."""
+    out = torch.empty((words.shape[0], dim), dtype=torch.bfloat16,
+                      device=words.device)
+    for i in range(0, words.shape[0], 1 << 16):
+        out[i:i + (1 << 16)] = unpack_bits(words[i:i + (1 << 16)], dim) * 2 - 1
+    return out
+
+
+def phase_hamming_kernel(n, seed, sm_hz):
+    """K4 against hamming_block_ref on the card (bit-equal), then timings at
+    the flat scan's shape. Returns (the flat shape's row, max abs error)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    max_abs = 0.0
+    for nq, nb, w in K4_CASES:
+        q, b = random_words(gen, nq, w), random_words(gen, nb, w)
+        got, want = hamming_block(q, b), hamming_block_ref(q, b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        max_abs = max(max_abs, err)
+        row = dict(q=nq, n=nb, w=w, bit_equal=bool(torch.equal(got, want)),
+                   max_abs_err=err, device_ms=device_ms(
+                       lambda x: hamming_block(q, x), [b], per_call=1))
+        log("hamming_block " + json.dumps(row))
+        if not row["bit_equal"]:
+            fail(f"hamming_block disagrees with its plain version: {row}")
+        del got, want
+
+    # the flat scan's shape: Q = 1024 queries against n rows of 1024 bits
+    w = HAM_WORDS
+    q = random_words(gen, BATCH, w)
+    bases = [random_words(gen, n, w) for _ in range(2)]
+    got = hamming_block(q, bases[0])
+    want = hamming_block_ref(q, bases[0])
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    max_abs = max(max_abs, err)
+    del got
+    # hamming_exact_topk against a top-k of the plain distances
+    d, ids = hamming_exact_topk(q, bases[0], K)
+    want_d, _ = torch.topk(want, K, dim=1, largest=False, sorted=True)
+    topk_ok = bool(torch.equal(d, want_d)) and bool(torch.equal(
+        torch.gather(want, 1, ids.long()), d))
+    del want, d, ids, want_d
+    times = {}
+    times["call_ms"] = cuda_ms(lambda x: hamming_block(q, x), bases)
+    times["device_ms"] = device_ms(lambda x: hamming_block(q, x), bases,
+                                   per_call=1)
+    times["ms"] = times["device_ms"] or times["call_ms"]
+    # the plain version takes seconds a call here: one warm-up, two calls
+    times["plain_ms"] = cuda_ms(lambda x: hamming_block_ref(q, x), bases,
+                                warm=1, reps=2)
+    # library yardstick: one torch.matmul of +-1 bf16 operands [1024, 1024]
+    # x [1024, n] (unpacked outside the timing), bf16 out = 32W - 2 hamming
+    # (rounded to bf16 above 256)
+    qa = pm1_bf16(q, 32 * w)
+    pm = [pm1_bf16(b, 32 * w) for b in bases]
+    times["library_call_ms"] = cuda_ms(lambda x: torch.matmul(qa, x.T), pm)
+    times["library_device_ms"] = device_ms(lambda x: torch.matmul(qa, x.T), pm)
+    times["library_ms"] = times["library_device_ms"] or times["library_call_ms"]
+    del pm, qa
+    nbytes = (BATCH + n) * w * 4 + BATCH * n * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 2 * BATCH * n * 32 * w / PEAK_INT8_OPS * 1e3
+    popc_floor_ms = BATCH * n * w / (POPC_PER_CLOCK_PER_SM * SMS * sm_hz) * 1e3
+    row = dict(q=BATCH, n=n, w=w, bit_equal=bit_equal, topk_ok=topk_ok,
+               max_abs_err=err, **times, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes=nbytes, ops_ms=ops_ms, popc_floor_ms=popc_floor_ms,
+               sm_clock_hz=sm_hz)
+    log("hamming_block " + json.dumps(row))
+    if not (bit_equal and topk_ok):
+        fail(f"hamming_block or hamming_exact_topk disagrees: {row}")
+    if row["ms"] < popc_floor_ms:  # a time no run of this design can reach
+        fail(f"hamming_block timed under its popcount floor: {row}")
+    return row, max_abs
+
+
+_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
+_POPCOUNT16 = np.array([bin(i).count("1") for i in range(1 << 16)], np.uint8)
+HAM_HOST_TRUTH_QUERIES = 64  # queries whose k nearest the host recomputes
+
+
+def host_hamming(rows, queries, ids):
+    """Hamming distances [Q, k] of ``ids`` on the host (numpy byte table)."""
+    x = np.bitwise_xor(queries[:, None, :], rows[ids])
+    return _POPCOUNT8[x.view(np.uint8)].sum(-1).astype(np.float32)
+
+
+def bit_rows(rng, centres, n):
+    """centre XOR (r1 & r2 & r3): each bit flips with p = 1/8."""
+    r1, r2, r3 = (rng.integers(0, 2**32, (n, centres.shape[1]), dtype=np.uint32)
+                  for _ in range(3))
+    return centres[rng.integers(0, len(centres), n)] ^ (r1 & r2 & r3)
+
+
+def phase_hamming_path(n, seed):
+    """The hamming main path at full width: 1024-bit rows (128 bytes each,
+    the width of binary-quantised 1024-d sentence embeddings)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 4)
+    centres = rng.integers(0, 2**32, (HAM_CENTRES, HAM_WORDS), dtype=np.uint32)
+    rows = bit_rows(rng, centres, n)
+    queries = bit_rows(rng, centres, N_BATCHES * BATCH)
+    log(f"hamming data: {n} x {HAM_DIM} bits ({HAM_CENTRES} centres, p(flip) "
+        f"1/8) + {len(queries)} queries in {time.perf_counter() - t0:.1f} s")
+    ix = Index(HnswParams(dim=HAM_DIM, metric=Metric.HAMMING,
+                          quant=QuantKind.B1), capacity=n, seed=seed,
+               device="cuda")
+    t0 = time.perf_counter()
+    ix.add(rows, nthreads=0)
+    log(f"hamming host build: {n} rows x {HAM_DIM} bits (m=16, "
+        f"ef_construction=128, all host cores) in {time.perf_counter() - t0:.1f} s")
+    graph = ix.device_graph
+    log(f"hamming device mirror: words {tuple(graph.vectors.shape)} "
+        f"{graph.vectors.dtype}, {graph.vectors.numel() * 4 / 2**20:.0f} MiB")
+    t0 = time.perf_counter()
+    gt_d, gt_i = hamming_exact_topk(
+        torch.from_numpy(queries.view(np.int32)).cuda(), graph.vectors, K)
+    gt_d, gt_i = gt_d.cpu().numpy(), gt_i.cpu().numpy()
+    log(f"hamming ground truth: hamming_exact_topk of {len(queries)} queries "
+        f"in {time.perf_counter() - t0:.2f} s")
+    # K4 scores that truth, so hold it on a sample to a scan on the host
+    # (16-bit popcount table) that no kernel touches: the k nearest
+    # distances must be equal, or K4 missed a true neighbour
+    t0 = time.perf_counter()
+    sample = np.linspace(0, len(queries) - 1, HAM_HOST_TRUTH_QUERIES).astype(int)
+    for i in sample:
+        d = _POPCOUNT16[(rows ^ queries[i]).view(np.uint16)].sum(
+            1, dtype=np.int32)
+        want = np.sort(np.partition(d, K - 1)[:K]).astype(np.float32)
+        if not np.array_equal(gt_d[i], want):
+            fail(f"hamming ground truth of query {i}: {gt_d[i].tolist()} "
+                 f"!= the host scan's {want.tolist()}")
+    log(f"hamming ground truth: the k nearest distances of {len(sample)} "
+        "queries equal a host scan of all rows "
+        f"({time.perf_counter() - t0:.1f} s)")
+    kth = gt_d[:, K - 1:K]
+
+    def check(name, dists, ids):
+        exact = host_hamming(rows, queries, ids)
+        if not np.array_equal(dists, exact):
+            fail(f"{name}: returned distances differ from the host's hamming "
+                 f"distances (max abs {np.abs(dists - exact).max()})")
+        # tie-aware: a returned id counts if its distance is within the k-th
+        # true distance (ids are distinct, so at most k count per query)
+        return dict(recall_at_10_tie_aware=float((exact <= kth).mean()))
+
+    batches = [queries[i:i + BATCH] for i in range(0, len(queries), BATCH)]
+    # the hamming path's launches start here
+    gather_dists.launches = pq_decode.launches = hamming_block.launches = 0
+    modes = {"hamming_flat": dict(mode="flat"),
+             "hamming_graph": dict(mode="graph")}
+    results = timed_modes(ix, batches, modes, gt_i, check)
+    launches = hamming_block.launches
+    if gather_dists.launches or pq_decode.launches:
+        fail("the hamming path launched K1 or the PQ decode kernel")
+    for name, kw in modes.items():
+        if results[name]["k4_launches_per_batch"] <= 0:
+            fail(f"{name} never launched K4")
+        profile_search(ix, batches[0], name, results[name]["ms_per_batch"], **kw)
+    # float +-1 rows, binarised inside search, return the packed batch's labels
+    signs = np.unpackbits(batches[0].view(np.uint8), axis=1, bitorder="little")
+    signs = signs.astype(np.float32) * 2 - 1
+    for mode in ("flat", "graph"):
+        _, lab_w = ix.search(batches[0], k=K, mode=mode)
+        _, lab_f = ix.search(signs, k=K, mode=mode)
+        if not np.array_equal(lab_w, lab_f):
+            fail(f"hamming {mode}: float +-1 queries return other labels than "
+                 "their packed words")
+    log("hamming: float +-1 queries return the packed batch's labels (flat, "
+        "graph)")
+    r = {name: res["recall_at_10_tie_aware"] for name, res in results.items()}
+    if r["hamming_flat"] < HAM_FLAT_RECALL_MIN:
+        fail(f"hamming flat tie-aware recall@10 {r['hamming_flat']} < "
+             f"{HAM_FLAT_RECALL_MIN}")
+    if r["hamming_graph"] < HAM_GRAPH_RECALL_MIN:
+        fail(f"hamming graph tie-aware recall@10 {r['hamming_graph']} < "
+             f"{HAM_GRAPH_RECALL_MIN}")
+    return launches
+
+
+def phase_i8_path(base, queries, queries_dev, gt_i, seed):
+    """The i8 main path on the f32 phase's rows: int8 codes and per-row
+    scales on the card, flat and graph, no kernel launched."""
+    n = base.shape[0]
+    gather_dists.launches = pq_decode.launches = hamming_block.launches = 0
+    ix = Index(HnswParams(dim=DIM, quant=QuantKind.I8), capacity=n, seed=seed,
+               device="cuda")
+    t0 = time.perf_counter()
+    ix.add(base, nthreads=0)
+    log(f"i8 add: {n} rows x {DIM} (quantise + dequantise on the card, host "
+        f"build over the dequantised rows, all host cores) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    graph = ix.device_graph
+    log(f"i8 device mirror: codes {tuple(graph.vectors.shape)} "
+        f"{graph.vectors.dtype} {graph.vectors.numel() / 2**20:.0f} MiB + "
+        f"scales {graph.vec_scales.numel() * 4 / 2**20:.1f} MiB")
+    if gt_i is None:  # a cut i8 table: its own f32 truth
+        _, gt_i = exact_search(queries_dev, torch.from_numpy(base).cuda(), K)
+        gt_i = gt_i.cpu().numpy()
+    deq = torch.from_numpy(np.array(ix._eng.vectors[:n])).cuda()
+    _, gt_deq = exact_search(queries_dev, deq, K)
+    gt_deq = gt_deq.cpu().numpy()
+    q_sq = (queries_dev * queries_dev).sum(1).cpu().numpy()[:, None]
+
+    def check(name, dists, ids):
+        rows = deq[torch.from_numpy(ids).cuda()]
+        exact = ((rows - queries_dev[:, None, :]) ** 2).sum(-1).cpu().numpy()
+        x_sq = (rows * rows).sum(-1).cpu().numpy()
+        # the flat scan (and the graph's entry seeds) score bf16(q): each
+        # rounding is within 2^-9 relative, held with a factor 2 slack
+        ok = np.abs(dists - exact) <= 2.0 ** -7 * (q_sq + x_sq) + 1e-3
+        log(f"i8 {name}: max |dist - exact| {np.abs(dists - exact).max():.3e}")
+        if not ok.all():
+            fail(f"{name}: returned distances disagree with the dequantised "
+                 f"rows' (max abs {np.abs(dists - exact).max()})")
+        return dict(recall_at_10_vs_dequantised=recall(ids, gt_deq))
+
+    batches = [queries[i:i + BATCH] for i in range(0, len(queries), BATCH)]
+    modes = {"i8_flat": dict(mode="flat"), "i8_graph": dict(mode="graph")}
+    results = timed_modes(ix, batches, modes, gt_i, check)
+    del deq
+    launched = (gather_dists.launches, pq_decode.launches, hamming_block.launches)
+    if any(launched):
+        fail(f"the i8 path launched kernels (K1, decode, K4) {launched}")
+    for name, kw in modes.items():
+        profile_search(ix, batches[0], name, results[name]["ms_per_batch"], **kw)
+    for name, res in results.items():
+        if res["recall_at_10"] < I8_RECALL_MIN:
+            fail(f"{name} recall@10 {res['recall_at_10']} < {I8_RECALL_MIN}")
+    deq_r = results["i8_flat"]["recall_at_10_vs_dequantised"]
+    if deq_r < I8_DEQ_FLAT_RECALL_MIN:
+        fail(f"i8 flat recall@10 against the dequantised rows {deq_r} < "
+             f"{I8_DEQ_FLAT_RECALL_MIN}")
+
+
 def profile_search(ix, batch, label, wall_ms, **search_kw):
     """Device time of one search batch by kernel (torch.profiler), and the
     device's idle share against the unprofiled wall time per batch."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        ix.search(batch, k=K, **search_kw)
-        torch.cuda.synchronize()
-    ev = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+    ev = sorted((e for e in profiled(lambda: ix.search(batch, k=K, **search_kw))
+                 if e.self_device_time_total > 0),
                 key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
     log("profile " + json.dumps({
@@ -538,14 +858,19 @@ def profile_search(ix, batch, label, wall_ms, **search_kw):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base rows")
+    ap.add_argument("--i8-n", type=int, default=None,
+                    help="rows of the i8 path (default: --n)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    i8_n = args.i8_n or args.n
 
     t_start = time.perf_counter()
-    smi = phase_environment()
+    smi, sm_hz = phase_environment()
     phase_build()
     if args.n != 1_000_000:
         log(f"n cut: {args.n} rows instead of 1000000")
+    if i8_n != args.n:
+        log(f"i8 n cut: {i8_n} rows instead of {args.n}")
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
     base, centers = clustered(rng, args.n)
@@ -561,6 +886,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     pq, pq_max_abs = phase_pq_kernel(args.seed)
     torch.cuda.synchronize()
+    k4, k4_max_abs = phase_hamming_kernel(args.n, args.seed, sm_hz)
+    torch.cuda.synchronize()
     launches, _, gt_i = phase_main_path(base, queries, base_dev, queries_dev,
                                         args.seed)
     torch.cuda.synchronize()
@@ -568,6 +895,11 @@ def main(argv=None):
     pq_launches = phase_pq_path(base, queries, queries_dev, gt_i, args.seed)
     torch.cuda.synchronize()
     phase_opq(args.seed)
+    torch.cuda.synchronize()
+    k4_launches = phase_hamming_path(args.n, args.seed)
+    torch.cuda.synchronize()
+    phase_i8_path(base[:i8_n], queries, queries_dev,
+                  gt_i if i8_n == args.n else None, args.seed)
     torch.cuda.synchronize()
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
 
@@ -598,6 +930,19 @@ def main(argv=None):
         "bound_ms": pq["bound_ms"],
         "bound_by": pq["bound_by"],
         "library_ms": pq["library_ms"],
+    }, {
+        "name": "hamming_block",
+        "route": "cuda",
+        "source": "lantern_tpu_torch/csrc/hamming.cu",
+        "replaces": "lantern_tpu/ops/pallas_kernels.py:45 (K4) and :79 "
+                    "(hamming_exact_topk)",
+        "launches": k4_launches,
+        "max_abs_err": k4_max_abs,
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"],
     }]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,15 @@ reference's module names so each function has a counterpart to read:
 - ``native``            the C++ HNSW host engine, bound with ctypes
 - ``graph.device``      ``DeviceGraph``: the graph arrays as torch tensors
 - ``graph.search``      the batched HNSW beam search (ADC for PQ graphs)
-- ``flat``              the dense matmul + top-k scan, the PQ scan and rerank
+- ``flat``              the dense matmul + top-k scan (i8, hamming), the PQ
+                        scan and rerank
 - ``quant.pq``          PQ codebook training, encode/decode, ADC tables
+- ``quant.scalar``      i8 quantisation and 1-bit packing (b1 rows)
 - ``ops.distance``      distances and the exact-search oracle
 - ``ops.gather_dists``  the beam's gather-distance kernel (CUDA, csrc/)
 - ``ops.pq_decode``     the PQ decode kernel (CUDA, csrc/)
+- ``ops.hamming``       the all-pairs hamming kernel and its exact top-k
+                        (CUDA, csrc/)
 - ``costmodel``         flat-vs-graph dispatch
 - ``index``             the ``Index`` facade
 

@@ -8,6 +8,10 @@ are exact and sums f32, as the reference's f32-accumulating dot) with
 no approximate top-k. Up to ``ONESHOT_MAX_N`` rows the scan is one [Q, N]
 block; above, it walks blocks and merges a running top-k.
 
+i8 tables (int8 codes with per-row scales) score bf16-rounded queries
+against the codes widened exactly to f32, then scale the products per row.
+Hamming tables (int32 words) score -distance with K4 (``ops/hamming.py``).
+
 PQ tables scan by decoding each block of codes with the PQ decode kernel
 (``ops/pq_decode.py``, which also returns |x|^2) and scoring the decoded
 block densely (``flat_search_pq``); ``flat_search_pq_rerank`` re-scores an
@@ -20,21 +24,29 @@ import torch
 
 from lantern_tpu_torch.config import Metric
 from lantern_tpu_torch.ops.distance import require_full_f32_matmul
+from lantern_tpu_torch.ops.hamming import hamming_block
 from lantern_tpu_torch.ops.pq_decode import codebook_bf16, pq_decode
 
 # one-shot scans materialise a [Q, N] score block; beyond this N the scan is
-# blocked to bound it
+# blocked to bound it. Hamming blocks too: the reference caps them at 8192
+# rows because its jnp XOR/popcount builds a [Q, B, W] intermediate
+# (lantern_tpu/flat.py:227-230); K4 writes only the [Q, B] block, the same
+# size as every other metric's score block.
 ONESHOT_MAX_N = 1 << 21
 
 
-def _scores(vectors, sq_norms, queries_f32, metric: Metric):
+def _scores(vectors, sq_norms, queries_f32, metric: Metric, vec_scales=None):
     """[Q, d] x [N, d] -> [Q, N] DESCENDING-better scores (rank-equivalent).
 
     The query is rounded to the storage type first, as the reference does
-    (bf16 tables score bf16 queries).
+    (bf16 tables score bf16 queries; int8 codes score bf16 queries, the
+    codes widened exactly, then each row's product times its i8 scale).
     """
-    qf = queries_f32.to(vectors.dtype).float()
+    qdt = torch.bfloat16 if vectors.dtype == torch.int8 else vectors.dtype
+    qf = queries_f32.to(qdt).float()
     dots = qf @ vectors.float().T  # fresh [Q, N] block: updated in place
+    if vec_scales is not None:
+        dots.mul_(vec_scales[None, :])
     if metric == Metric.L2SQ:
         return dots.mul_(2.0).sub_(sq_norms[None, :])
     # cosine: rank by dot / |x| (|q| constant per row)
@@ -44,6 +56,8 @@ def _scores(vectors, sq_norms, queries_f32, metric: Metric):
 def _score_to_dist(score, q_sq, metric: Metric):
     if metric == Metric.L2SQ:
         return q_sq[:, None] - score
+    if metric == Metric.HAMMING:
+        return -score  # hamming scores are negated distances
     return 1.0 - score / torch.clamp(torch.sqrt(q_sq)[:, None], min=1e-30)
 
 
@@ -81,38 +95,46 @@ def _pad_k(d, ids, k_out: int):
 
 
 def flat_search(
-    vectors: torch.Tensor,     # [N, d] f32/bf16
-    sq_norms: torch.Tensor,    # [N] f32
-    queries: torch.Tensor,     # [Q, d] f32
+    vectors: torch.Tensor,     # [N, d] f32/bf16/i8, or [N, W] int32 words
+    sq_norms: torch.Tensor,    # [N] f32 (unused for hamming)
+    queries: torch.Tensor,     # [Q, d] f32, or [Q, W] int32 words
     k: int = 10,
     metric: int = int(Metric.L2SQ),
     exact: bool = False,
     block: int | None = None,
     deleted: torch.Tensor | None = None,
+    vec_scales: torch.Tensor | None = None,  # [N] f32 for i8 codes
 ):
     """Dense scan top-k. Returns (dists [Q, k] ascending, ids [Q, k] int32).
 
     ``deleted``: optional [N] bool mask of rows excluded from the results.
     ``exact=True`` is the ground-truth mode: it refuses to run with TF32
-    matmuls enabled (top-k itself is always exact here).
+    matmuls enabled (top-k itself is always exact here). Hamming scores
+    -``hamming_block`` (K4 on the card); tied distances come in any order.
     """
     metric = Metric(metric)
-    if metric == Metric.HAMMING:
-        raise NotImplementedError(
-            "hamming scans wait for the hamming slice (ROADMAP queue 1)")
-    if exact:
+    hamming = metric == Metric.HAMMING
+    if exact and not hamming:
         require_full_f32_matmul()
     n, q = vectors.shape[0], queries.shape[0]
-    qf = queries.float()
-    q_sq = (qf * qf).sum(1)
+    dev = queries.device
+    if hamming:
+        qf, q_sq = queries, torch.zeros(q, device=dev)
+    else:
+        qf = queries.float()
+        q_sq = (qf * qf).sum(1)
     if n == 0:
-        return _pad_k(qf.new_zeros((q, 0)),
-                      torch.zeros((q, 0), dtype=torch.int32, device=qf.device), k)
+        return _pad_k(q_sq.new_zeros((q, 0)),
+                      torch.zeros((q, 0), dtype=torch.int32, device=dev), k)
     if block is None:
         block = min(n, ONESHOT_MAX_N)
 
     def score_fn(start, stop):
-        s = _scores(vectors[start:stop], sq_norms[start:stop], qf, metric)
+        if hamming:
+            s = hamming_block(qf, vectors[start:stop]).neg_()
+        else:
+            s = _scores(vectors[start:stop], sq_norms[start:stop], qf, metric,
+                        None if vec_scales is None else vec_scales[start:stop])
         if deleted is not None:
             s.masked_fill_(deleted[None, start:stop], float("-inf"))
         return s
@@ -246,7 +268,8 @@ def flat_search_graph(graph, queries, k: int = 10, exact: bool = False,
     Returns (dists [Q, k], ids [Q, k], labels [Q, k] int64) like
     search_batched. Tombstones, unfilled capacity rows and the optional
     ``exclude`` [cap] bool mask are filtered exactly (masked before top-k).
-    PQ graphs run the ADC scan over their codes (``flat_search_pq``).
+    PQ graphs run the ADC scan over their codes (``flat_search_pq``); i8
+    graphs scale by ``vec_scales``; hamming graphs take int32 word queries.
     """
     from lantern_tpu_torch.graph.device import QUANT_PQ
 
@@ -258,5 +281,5 @@ def flat_search_graph(graph, queries, k: int = 10, exact: bool = False,
     else:
         d, ids = flat_search(graph.vectors, graph.sq_norms, queries, k=k,
                              metric=graph.metric, exact=exact,
-                             deleted=excluded)
+                             deleted=excluded, vec_scales=graph.vec_scales)
     return d, ids, graph.labels_at(ids)

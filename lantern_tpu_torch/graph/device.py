@@ -2,11 +2,16 @@
 
 A ``DeviceGraph`` holds the host engine's graph as flat tensors on one device:
 
-- ``vectors[cap, dim]``        f32 or bf16 rows, or ``[cap, S]`` uint8 PQ codes
-                               (``quant == QUANT_PQ``, with ``pq_codebook``
-                               ``[S, K, dsub]`` f32 and the optional OPQ
+- ``vectors[cap, dim]``        f32 or bf16 rows; int8 codes (``quant == I8``,
+                               with per-row f32 ``vec_scales[cap]``);
+                               ``[cap, W]`` int32 words carrying the uint32
+                               bits for hamming (``W = ceil(dim/32)``); or
+                               ``[cap, S]`` uint8 PQ codes (``quant ==
+                               QUANT_PQ``, with ``pq_codebook`` ``[S, K,
+                               dsub]`` f32 and the optional OPQ
                                ``pq_rotation`` ``[dim, dim]``)
-- ``sq_norms[cap]``            f32 |x|^2 (of the decoded rows for PQ)
+- ``sq_norms[cap]``            f32 |x|^2 (of the decoded rows for PQ, of the
+                               dequantised rows for i8; zeros for hamming)
 - ``neighbors0[cap+1, 2M]``    level-0 adjacency, -1 padded; row ``cap`` is the
                                all-invalid dummy row that expands to nothing
 - ``upper_neighbors[ucap, LMAX, M]`` adjacency of the nodes with level >= 1
@@ -38,7 +43,7 @@ QUANT_PQ = 100
 
 @dataclasses.dataclass
 class DeviceGraph:
-    vectors: torch.Tensor          # [cap, dim] f32 / bf16, or [cap, S] u8 codes
+    vectors: torch.Tensor          # [cap, dim] f32/bf16/i8, [cap, W] i32, [cap, S] u8
     sq_norms: torch.Tensor         # [cap] f32
     neighbors0: torch.Tensor       # [cap+1, m0] int32
     upper_neighbors: torch.Tensor  # [ucap, LMAX, m] int32
@@ -54,6 +59,7 @@ class DeviceGraph:
     # 0)] and sq_norms[...]); attached only by with_aug_norms
     upper_vectors: torch.Tensor | None = None  # [ucap, dim]
     upper_sq: torch.Tensor | None = None       # [ucap] f32
+    vec_scales: torch.Tensor | None = None     # [cap] f32 per-row i8 scales
     pq_codebook: torch.Tensor | None = None    # [S, K, dsub] f32
     pq_rotation: torch.Tensor | None = None    # [dim, dim] f32 (OPQ)
     m: int = 16
@@ -98,7 +104,7 @@ def with_aug_norms(g: DeviceGraph) -> DeviceGraph:
     """
     if g.upper_vectors is not None:
         return g
-    if Metric(g.metric) != Metric.L2SQ:
+    if Metric(g.metric) != Metric.L2SQ or g.vec_scales is not None:
         return g
     if g.quant not in (int(QuantKind.F32), int(QuantKind.F16)):
         return g
@@ -119,45 +125,55 @@ def upper_ids_from_slots(upper_slot: np.ndarray, ucap: int) -> np.ndarray:
     return ids
 
 
-def _sq_norms_np(vectors: np.ndarray) -> np.ndarray:
+def _sq_norms_np(vectors: np.ndarray, metric: Metric) -> np.ndarray:
+    if metric == Metric.HAMMING:
+        return np.zeros(vectors.shape[0], np.float32)
     v = vectors.astype(np.float32)
     return np.einsum("nd,nd->n", v, v).astype(np.float32)
 
 
 def _check_scope(metric: Metric, quant: int) -> None:
-    if metric == Metric.HAMMING:
+    if quant not in (int(QuantKind.F32), int(QuantKind.F16),
+                     int(QuantKind.I8), QUANT_PQ):
         raise NotImplementedError(
-            "hamming graphs wait for the hamming slice (ROADMAP queue 1)")
-    if quant not in (int(QuantKind.F32), int(QuantKind.F16), QUANT_PQ):
-        raise NotImplementedError(
-            f"quant={quant} waits for the i8 / b1 items (ROADMAP queue 1); "
-            "the port stores f32 or bf16 rows, or PQ codes")
+            f"quant={quant}: the port stores f32, bf16 or int8 rows, packed "
+            "bit words (quant F32, as the reference), or PQ codes")
+    if metric == Metric.HAMMING and quant != int(QuantKind.F32):
+        raise ValueError("hamming graphs store packed bit words with quant "
+                         f"F32, as the reference's do, not quant={quant}")
 
 
 def to_device(host, dtype: torch.dtype | None = None,
               device: str | torch.device | None = None,
-              pq_codebook=None) -> DeviceGraph:
+              pq_codebook=None,
+              quant: QuantKind | int | None = None) -> DeviceGraph:
     """Copy a NativeHnsw into a DeviceGraph on ``device`` (default cuda).
 
     ``dtype=torch.bfloat16`` stores bf16 rows (QuantKind.F16, as the
-    reference's bf16 mirror). ``pq_codebook`` (quant.pq.PQCodebook) stores
-    only the rows' uint8 codes, ``vectors [cap, S]`` (QUANT_PQ), beside the
-    codebook; ``sq_norms`` are those of the engine's rows, which for a PQ
-    index are the decoded rows. The engine's arrays are zero-copy views of
-    C++ memory that dangle after grow(); every array is copied before it
-    becomes a tensor.
+    reference's bf16 mirror). ``quant=QuantKind.I8`` stores int8 codes and
+    per-row scales, re-encoding the engine's rows (already dequantised i8
+    values, so the encoding is exact). ``pq_codebook`` (quant.pq.PQCodebook)
+    stores only the rows' uint8 codes, ``vectors [cap, S]`` (QUANT_PQ),
+    beside the codebook. ``sq_norms`` are those of the engine's rows (the
+    decoded rows for PQ, zeros for hamming). Hamming engines' uint32 words
+    are stored as int32 words with no dtype cast. The engine's arrays are
+    zero-copy views of C++ memory that dangle after grow(); every array is
+    copied before it becomes a tensor.
     """
     dev = resolve_device(device)
     metric = Metric(host.metric)
-    quant = int(QuantKind.F16) if dtype == torch.bfloat16 else int(QuantKind.F32)
-    if pq_codebook is not None:
-        quant = QUANT_PQ
     if dtype not in (None, torch.float32, torch.bfloat16):
         raise NotImplementedError(f"dtype {dtype}: the port stores f32 or bf16")
+    if pq_codebook is not None:
+        quant = QUANT_PQ
+    elif quant is None:
+        quant = (QuantKind.F16 if dtype == torch.bfloat16
+                 and metric != Metric.HAMMING else QuantKind.F32)
+    quant = int(quant)
     _check_scope(metric, quant)
     n = host.n
     nu = max(host.n_upper, 1)
-    vectors = np.array(host.vectors[:n], np.float32)
+    vectors = np.array(host.vectors[:n])
     upper_slot = np.array(host.upper_slot[:n], np.int32)
     nbr0 = np.concatenate(
         [host.neighbors0[:n], np.full((1, host.p.m0), -1, np.int32)], axis=0
@@ -166,8 +182,14 @@ def to_device(host, dtype: torch.dtype | None = None,
     def t(a):
         return torch.from_numpy(np.require(a, requirements=("C", "W"))).to(dev)
 
-    pq_cb = pq_rot = None
-    if pq_codebook is not None:
+    pq_cb = pq_rot = scales = None
+    if metric == Metric.HAMMING:
+        vec = t(vectors.view(np.int32))
+    elif quant == int(QuantKind.I8):
+        from lantern_tpu_torch.quant.scalar import quantize_i8
+
+        vec, scales = quantize_i8(t(vectors))
+    elif pq_codebook is not None:
         from lantern_tpu_torch.quant.pq import pq_encode
 
         vec = t(pq_encode(vectors, pq_codebook, device=dev))  # [n, S] u8
@@ -180,7 +202,7 @@ def to_device(host, dtype: torch.dtype | None = None,
             vec = vec.to(dtype)
     return DeviceGraph(
         vectors=vec,
-        sq_norms=t(_sq_norms_np(vectors)),
+        sq_norms=t(_sq_norms_np(vectors, metric)),
         neighbors0=t(nbr0),
         upper_neighbors=t(np.array(host.upper_neighbors[:nu], np.int32)),
         upper_slot=t(upper_slot),
@@ -191,6 +213,7 @@ def to_device(host, dtype: torch.dtype | None = None,
         max_level=int(host.max_level),
         num_nodes=int(n),
         upper_ids=t(upper_ids_from_slots(upper_slot, nu)),
+        vec_scales=scales,
         pq_codebook=pq_cb,
         pq_rotation=pq_rot,
         m=host.p.m,
@@ -202,11 +225,14 @@ def to_device(host, dtype: torch.dtype | None = None,
 
 def _tensor_from_np(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """numpy -> tensor, including JAX's bfloat16 arrays (ml_dtypes), which
-    torch.from_numpy cannot read: their bits go across as int16. Copies, so
-    the tensor never aliases the (possibly read-only) source."""
+    torch.from_numpy cannot read: their bits go across as int16; uint32 bit
+    words become int32 words with the same bits. Copies, so the tensor never
+    aliases the (possibly read-only) source."""
     a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
     return torch.from_numpy(a).to(dev)
 
 
@@ -217,10 +243,11 @@ def from_jax_arrays(arrays: dict[str, np.ndarray], *, m: int, dim: int,
     given as numpy arrays (so both packages can search the same graph).
 
     ``labels`` ``[cap, 2]`` u32 (lo, hi) become int64 u64 bits;
-    ``neighbors0`` keeps its ``cap+1`` dummy row; ``entry``, ``max_level``
-    and ``num_nodes`` may be 0-d arrays. Optional fields (``upper_ids``,
-    ``upper_vectors``, ``upper_sq``, and for PQ graphs ``pq_codebook`` and
-    ``pq_rotation``) are taken when present.
+    ``neighbors0`` keeps its ``cap+1`` dummy row; hamming graphs' uint32
+    ``vectors`` become int32 words; ``entry``, ``max_level`` and
+    ``num_nodes`` may be 0-d arrays. Optional fields (``upper_ids``,
+    ``upper_vectors``, ``upper_sq``, ``vec_scales`` of i8 graphs, and for PQ
+    graphs ``pq_codebook`` and ``pq_rotation``) are taken when present.
     """
     dev = resolve_device(device)
     metric = Metric(metric)
@@ -231,8 +258,8 @@ def from_jax_arrays(arrays: dict[str, np.ndarray], *, m: int, dim: int,
         name: _tensor_from_np(np.asarray(arrays[name]), dev)
         for name in ("vectors", "sq_norms", "neighbors0", "upper_neighbors",
                      "upper_slot", "levels", "deleted", "upper_ids",
-                     "upper_vectors", "upper_sq", "pq_codebook",
-                     "pq_rotation")
+                     "upper_vectors", "upper_sq", "vec_scales",
+                     "pq_codebook", "pq_rotation")
         if arrays.get(name) is not None
     }
     tensors["labels"] = torch.from_numpy(lab64.view(np.int64)).to(dev)

@@ -14,6 +14,10 @@ A block of Q queries searches the graph in lockstep:
   per-query table ``adc_lut`` built once per batch, summed over the gathered
   codes; their entry scan is a PQ flat scan (the PQ decode kernel). Under
   OPQ the query is rotated once, at the top of ``search_batched``;
+- hamming graphs (int32 words, int32 word queries) score candidates by a row
+  gather and XOR/popcount in plain torch, as the reference does in jnp; their
+  entry scan is a flat hamming scan, so it runs K4 (``ops/hamming.py``). i8
+  graphs gather the int8 rows and scale the products by ``vec_scales``;
 - termination: the HNSW criterion (best unexpanded > worst of a full beam)
   as a per-query active mask.
 
@@ -36,6 +40,7 @@ from lantern_tpu_torch.config import Metric, SearchParams
 from lantern_tpu_torch.flat import flat_search, flat_search_pq
 from lantern_tpu_torch.graph.device import QUANT_PQ, DeviceGraph
 from lantern_tpu_torch.native import LMAX
+from lantern_tpu_torch.ops.distance import hamming_dist
 from lantern_tpu_torch.ops.gather_dists import gather_dists
 from lantern_tpu_torch.quant.pq import adc_distances, adc_lut
 
@@ -45,18 +50,28 @@ _CHECK_EVERY = 4
 
 
 def _candidate_dists(graph: DeviceGraph, queries, q_sq, cand_ids, lut=None):
-    """Distances from each query to its candidates: K1 for stored rows, ADC
-    for PQ codes (``lut`` [Q, S, K] from adc_lut).
+    """Distances from each query to its candidates: K1 for f32/bf16 rows,
+    ADC for PQ codes (``lut`` [Q, S, K] from adc_lut), plain torch for
+    hamming words and i8 codes (the reference's jnp branches, which bypass
+    its gather kernel too).
 
-    queries [Q, d] f32, cand_ids [Q, C] -> [Q, C] f32. Ids are clipped to
-    [0, cap) here: ``vectors`` has no sentinel row, and K1 reads any id it
-    is given.
+    queries [Q, d] f32 (or [Q, W] int32 words), cand_ids [Q, C] -> [Q, C]
+    f32. Ids are clipped to [0, cap) here: ``vectors`` has no sentinel row,
+    and K1 reads any id it is given.
     """
     metric = Metric(graph.metric)
-    if metric not in (Metric.L2SQ, Metric.COS):
-        raise NotImplementedError(
-            "hamming search waits for the hamming slice (ROADMAP queue 1)")
     ids = torch.clamp(cand_ids, 0, graph.cap - 1).to(torch.int32).contiguous()
+    if metric == Metric.HAMMING:
+        return hamming_dist(queries[:, None, :], graph.vectors[ids.long()])
+    if graph.vec_scales is not None:  # i8 codes: widen, dot, scale per row
+        rows = ids.long()
+        dots = torch.einsum("qd,qcd->qc", queries, graph.vectors[rows].float())
+        dots = dots * graph.vec_scales[rows]
+        x_sq = graph.sq_norms[rows]
+        if metric == Metric.L2SQ:
+            return q_sq[:, None] - 2.0 * dots + x_sq
+        return 1.0 - dots / torch.clamp(torch.sqrt(q_sq)[:, None]
+                                        * torch.sqrt(x_sq), min=1e-30)
     if graph.quant == QUANT_PQ:
         rows = ids.long()
         part = adc_distances(lut, graph.vectors[rows])
@@ -127,6 +142,8 @@ def _upper_entry_scan(graph: DeviceGraph, queries, q_sq, seeds: int = 1,
             graph.upper_vectors if cached else graph.vectors[safe],
             graph.upper_sq if cached else graph.sq_norms[safe],
             queries, k=seeds, metric=graph.metric, deleted=excluded,
+            vec_scales=(None if graph.vec_scales is None
+                        else graph.vec_scales[safe]),
         )
     found = loc >= 0
     entry_ids = torch.where(
@@ -177,7 +194,8 @@ def search_batched(
     """Batched k-NN search. queries [Q, d] -> (dists, ids, labels) [Q, k].
 
     Invalid result slots (fewer than k reachable live nodes) have id -1,
-    dist +inf, label 0. Labels are int64 holding the u64 bits.
+    dist +inf, label 0. Labels are int64 holding the u64 bits. Hamming
+    graphs take [Q, W] int32 word queries.
 
     ``seeds``: upper-scan entry points placed in the initial beam (needs
     ``graph.upper_ids``; the greedy-descent fallback uses 1).
@@ -189,7 +207,9 @@ def search_batched(
     if max_iters is None:
         max_iters = 2 * ef // expand + 16
     dev = graph.device
-    queries = queries.to(dev, torch.float32).contiguous()
+    hamming = Metric(graph.metric) == Metric.HAMMING
+    queries = (queries.to(dev) if hamming
+               else queries.to(dev, torch.float32)).contiguous()
     if graph.quant == QUANT_PQ and graph.pq_rotation is not None:
         # OPQ: codes live in the rotated space; rotate the query once here,
         # every distance below (LUT, entry scan) then works in that space
@@ -197,7 +217,8 @@ def search_batched(
     q = queries.shape[0]
     cap = graph.cap
     c = expand * graph.m0
-    q_sq = (queries * queries).sum(1)
+    q_sq = (torch.zeros(q, device=dev) if hamming
+            else (queries * queries).sum(1))
     lut = None
     if graph.quant == QUANT_PQ:
         lut = adc_lut(queries, graph.pq_codebook, graph.metric)

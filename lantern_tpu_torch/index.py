@@ -4,8 +4,11 @@ One HNSW index: the native C++ engine builds the graph on the host, and
 queries run batched on the device against its mirror (``DeviceGraph``).
 Labels are arbitrary u64 external keys. Ported: ``add`` (host build),
 ``delete``, ``search`` (auto / flat / graph, allow and deny filters,
-``with_stats``), ``rows_for_labels``, ``size``, and product-quantised
-indexes (``HnswParams(pq=True)``): ``train_pq``, ``search(rerank=L | "auto")``,
+``with_stats``), ``rows_for_labels``, ``size``; every storage kind: f32,
+bf16 (``quant=F16``), i8 (``quant=I8``: int8 codes and per-row scales on the
+device), hamming over packed bits (``metric=HAMMING, quant=B1``: uint32 rows
+as given, float rows binarised by sign), and product-quantised indexes
+(``HnswParams(pq=True)``): ``train_pq``, ``search(rerank=L | "auto")``,
 ``calibrate_rerank``, ``set_rerank_source``. The rest of the reference facade
 raises NotImplementedError naming the ROADMAP item that brings it.
 """
@@ -30,6 +33,7 @@ from lantern_tpu_torch.graph.device import to_device, with_aug_norms
 from lantern_tpu_torch.graph.search import search_batched
 from lantern_tpu_torch.native import NativeHnsw
 from lantern_tpu_torch.quant.pq import pq_decode, pq_encode, train_codebook
+from lantern_tpu_torch.quant.scalar import binarize, dequantize_i8, quantize_i8
 
 
 def _later(what: str, item: str):
@@ -52,18 +56,16 @@ class Index:
     device. ``add`` trains the codebook on its first batch unless
     ``train_pq`` ran first, builds the host graph over the decoded rows, and
     (``keep_raw=True``) keeps the f32 rows on the host as the rerank source.
+
+    Binary: ``Index(HnswParams(dim=1024, metric=Metric.HAMMING,
+    quant=QuantKind.B1))`` takes rows and queries as packed uint32 words
+    ([n, dim/32]) or as floats, which are binarised (bit = component > 0).
     """
 
     def __init__(self, params: HnswParams, capacity: int = 1024, seed: int = 0,
                  device: str | torch.device | None = None,
                  keep_raw: bool = True):
         self.device = resolve_device(device)
-        if Metric(params.metric) == Metric.HAMMING:
-            raise NotImplementedError("hamming indexes: ROADMAP queue 1, hamming")
-        if params.quant not in (QuantKind.F32, QuantKind.F16):
-            raise NotImplementedError(
-                f"quant={QuantKind(params.quant).name}: ROADMAP queue 1, i8 "
-                "scalar quantisation (b1 with hamming)")
         self.params = params
         self._eng = NativeHnsw(params, capacity=capacity, seed=seed)
         self._graph = None  # cached device mirror
@@ -94,15 +96,27 @@ class Index:
         return self._codebook
 
     def _preprocess(self, vectors: np.ndarray) -> np.ndarray:
-        """PQ indexes build the host graph over the decoded rows, the same
-        representation the device searches."""
+        """Storage quantisation before the host build, so the graph is built
+        over the representation the device searches: PQ decodes its codes,
+        i8 quantises and dequantises, b1 binarises float rows (uint32 rows
+        are already packed). The work runs on the index's device."""
         vectors = np.asarray(vectors)
-        if not self.params.pq:
-            return vectors
-        if self._codebook is None:
-            self.train_pq(vectors)  # auto-train on the first batch
-        return pq_decode(pq_encode(vectors, self._codebook, device=self.device),
-                         self._codebook)
+        if self.params.pq:
+            if self._codebook is None:
+                self.train_pq(vectors)  # auto-train on the first batch
+            return pq_decode(pq_encode(vectors, self._codebook,
+                                       device=self.device), self._codebook)
+        if self.params.quant == QuantKind.I8:
+            x = torch.from_numpy(np.ascontiguousarray(vectors, np.float32))
+            return dequantize_i8(*quantize_i8(x.to(self.device))).cpu().numpy()
+        if self.params.quant == QuantKind.B1 and vectors.dtype != np.uint32:
+            return self._binarized(vectors).cpu().numpy().view(np.uint32)
+        return vectors
+
+    def _binarized(self, x: np.ndarray) -> torch.Tensor:
+        """Sign bits of float rows as int32 words, packed on the device."""
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+        return binarize(x.to(self.device))
 
     # ---- ingest ----
     def add(self, vectors: np.ndarray, labels: np.ndarray | None = None,
@@ -183,6 +197,9 @@ class Index:
             if self.params.pq:
                 g = to_device(self._eng, device=self.device,
                               pq_codebook=self._codebook)
+            elif self.params.quant == QuantKind.I8:
+                g = to_device(self._eng, device=self.device,
+                              quant=QuantKind.I8)
             else:
                 dtype = (torch.bfloat16 if self.params.quant == QuantKind.F16
                          else None)
@@ -213,6 +230,8 @@ class Index:
         rows; ``"auto"`` sizes the shortlist by ``calibrate_rerank``.
         ``with_stats=True`` appends a dict describing the executed plan: the
         mode, plus per-query visited / expanded counts for the graph.
+        Hamming indexes take packed uint32 queries as they are; a b1 index
+        binarises float queries.
         ``allow_labels`` / ``deny_labels``: predicate filters. The flat scan
         filters exactly; the graph drops filtered nodes at emit time like
         tombstones, so raise ``ef`` under heavy filtering.
@@ -221,8 +240,7 @@ class Index:
             k, ef = params.k, params.ef
         ef = ef or self.params.ef
         seeds = (params or SearchParams()).seeds
-        queries = np.atleast_2d(np.asarray(queries, np.float32))
-        q = torch.from_numpy(np.ascontiguousarray(queries)).to(self.device)
+        q = self._query_tensor(queries)
         graph = self.device_graph
         n = self._eng.n
         exclude = None
@@ -264,6 +282,18 @@ class Index:
             raise ValueError(f"unknown search mode {mode!r}")
         res = d.cpu().numpy(), labels.cpu().numpy().view(np.uint64)
         return (*res, stats) if with_stats else res
+
+    def _query_tensor(self, queries) -> torch.Tensor:
+        """Queries on the device: f32 rows, or int32 words for hamming
+        (packed uint32 rows as given; a b1 index binarises the rest)."""
+        queries = np.atleast_2d(np.asarray(queries))
+        if Metric(self.params.metric) != Metric.HAMMING:
+            return torch.from_numpy(
+                np.ascontiguousarray(queries, np.float32)).to(self.device)
+        if self.params.quant == QuantKind.B1 and queries.dtype != np.uint32:
+            return self._binarized(queries)
+        words = np.ascontiguousarray(queries, np.uint32).view(np.int32)
+        return torch.from_numpy(words).to(self.device)
 
     def rows_for_labels(self, labels: np.ndarray) -> np.ndarray:
         """Vectorized label -> internal-row resolution; -1 for unknown labels

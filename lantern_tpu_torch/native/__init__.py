@@ -3,8 +3,9 @@
 The port's own copy of lantern_tpu/native: ``hnsw_engine.cpp`` is the same
 source byte for byte, compiled with g++ at first use into the port's build
 directory (``lantern_tpu_torch/_build/``, see csrc/build.py). Plain C ABI,
-no framework. ``import_graph`` (adopting a device-built graph) waits for the
-device-builder slice and is not bound here.
+no framework. Hamming indexes store ``ceil(dim/32)`` uint32 words a row, as
+the reference's wrapper does. ``import_graph`` (adopting a device-built
+graph) waits for the device-builder slice and is not bound here.
 """
 
 from __future__ import annotations
@@ -78,19 +79,21 @@ def _as_np(ptr: int, shape, dtype):
 
 
 class NativeHnsw:
-    """Multicore native HNSW index over f32 rows (l2sq / cos)."""
+    """Multicore native HNSW index over f32 rows (l2sq / cos) or packed
+    uint32 bit words (hamming, ``ceil(dim/32)`` words a row)."""
 
     def __init__(self, params: HnswParams, capacity: int = 1024, seed: int = 0):
         self.p = params
         self.metric = Metric(params.metric)
         if self.metric == Metric.HAMMING:
-            raise NotImplementedError(
-                "hamming indexes wait for the hamming slice (ROADMAP queue 1)"
-            )
+            self.words = -(-params.dim // 32)
+            self._vec_dtype, self._vec_width = np.uint32, self.words
+        else:
+            self._vec_dtype, self._vec_width = np.float32, params.dim
         self._cap = max(int(capacity), 8)
         self._lib = get_lib()
         self._h = self._lib.ldb_index_new(
-            params.dim, params.dim, params.m, params.ef_construction,
+            params.dim, self._vec_width, params.m, params.ef_construction,
             int(self.metric), self._cap, seed,
         )
 
@@ -130,7 +133,8 @@ class NativeHnsw:
     @property
     def vectors(self):
         cap = self._stats()[4]
-        return self._view("ldb_index_vectors", (cap, self.p.dim), np.float32)
+        return self._view("ldb_index_vectors", (cap, self._vec_width),
+                          self._vec_dtype)
 
     @property
     def neighbors0(self):
@@ -178,11 +182,12 @@ class NativeHnsw:
             nthreads: int = 0):
         """Insert rows with ``nthreads`` workers (0 = all host cores; the
         graph then depends on thread timing, so pass 1 to reproduce one)."""
-        vecs = np.ascontiguousarray(vecs, dtype=np.float32)
+        vecs = np.ascontiguousarray(vecs, dtype=self._vec_dtype)
         if vecs.ndim == 1:
             vecs = vecs[None, :]
-        if vecs.shape[1] != self.p.dim:
-            raise ValueError(f"vector width {vecs.shape[1]} != expected {self.p.dim}")
+        if vecs.shape[1] != self._vec_width:
+            raise ValueError(
+                f"vector width {vecs.shape[1]} != expected {self._vec_width}")
         if labels is None:
             # NULL: the engine derives label = row id inside its atomically
             # reserved range (safe under concurrent add())
@@ -203,7 +208,7 @@ class NativeHnsw:
     def search(self, q: np.ndarray, k: int, ef: int | None = None):
         """Single-query search on the host (the reference's execution model)."""
         ef = ef or self.p.ef
-        q = np.ascontiguousarray(q, np.float32)
+        q = np.ascontiguousarray(q, self._vec_dtype)
         out_ids = np.empty(max(k, ef), np.int32)
         out_d = np.empty(max(k, ef), np.float32)
         cnt = self._lib.ldb_index_search(

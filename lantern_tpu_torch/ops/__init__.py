@@ -13,6 +13,11 @@ from lantern_tpu_torch.ops.gather_dists import (  # noqa: F401
     gather_dists,
     gather_dists_ref,
 )
+from lantern_tpu_torch.ops.hamming import (  # noqa: F401
+    hamming_block,
+    hamming_block_ref,
+    hamming_exact_topk,
+)
 from lantern_tpu_torch.ops.pq_decode import (  # noqa: F401
     codebook_bf16,
     pq_decode,

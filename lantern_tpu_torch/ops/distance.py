@@ -14,8 +14,10 @@ in full float32. On the card a float32 matmul is full f32 unless TF32 is
 switched on; ``exact_search`` is the ground truth and refuses to run with
 TF32 enabled (the GPU twin of the TPU's bf16-truncating default matmul).
 
-Packed bit words are 32-bit values held in int64 tensors: PyTorch has no
-shifts for uint32 on the CPU.
+Packed bit words are int32 tensors carrying the uint32 bits (4 bytes a
+word; torch has almost no uint32 arithmetic). Batched hamming distances go
+through K4 (``ops/hamming.py``); the plain single-pair versions widen the
+words to int64 inside.
 """
 
 from __future__ import annotations
@@ -23,8 +25,7 @@ from __future__ import annotations
 import torch
 
 from lantern_tpu_torch.config import Metric
-
-_U32 = 0xFFFFFFFF
+from lantern_tpu_torch.ops.hamming import hamming_block, hamming_dist, to_words
 
 
 def require_full_f32_matmul() -> None:
@@ -54,25 +55,6 @@ def cos_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return 1.0 - num / torch.clamp(den, min=1e-30)
 
 
-def hamming_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Bit-level hamming distance between packed word arrays (hnsw.c:383-395)."""
-    x = torch.bitwise_xor(_as_u32(a), _as_u32(b))
-    return _popcount_u32(x).sum(-1).float()
-
-
-def _as_u32(x: torch.Tensor) -> torch.Tensor:
-    """Words as their unsigned 32-bit values, in int64."""
-    return x.to(torch.int64) & _U32
-
-
-def _popcount_u32(x: torch.Tensor) -> torch.Tensor:
-    """SWAR popcount of 32-bit words held in int64 -> int32 counts."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return (((x * 0x01010101) & _U32) >> 24).to(torch.int32)
-
-
 # ---------------------------------------------------------------------------
 # batched query-block x base-block distances
 # ---------------------------------------------------------------------------
@@ -91,14 +73,13 @@ def pairwise_dist(
 ) -> torch.Tensor:
     """All-pairs distances: queries [Q, d] x base [N, d] -> [Q, N] float32.
 
-    For hamming, inputs are packed 32-bit words ([Q, W], [N, W]).
-    ``base_sq_norms`` (float32 [N]) skips the norm pass.
+    For hamming, inputs are packed 32-bit words ([Q, W], [N, W]; int32 on
+    the card), scored by K4 (``hamming_block``) with no [Q, N, W]
+    intermediate. ``base_sq_norms`` (float32 [N]) skips the norm pass.
     """
     metric = Metric(metric)
     if metric == Metric.HAMMING:
-        x = torch.bitwise_xor(_as_u32(queries)[:, None, :],
-                              _as_u32(base)[None, :, :])
-        return _popcount_u32(x).sum(-1).float()
+        return hamming_block(queries, base)
     dots = queries.float() @ base.float().T
     bn = base_sq_norms if base_sq_norms is not None else _sq_norms(base)
     if metric == Metric.L2SQ:
@@ -126,9 +107,10 @@ def exact_search(
 
     The ground-truth oracle. Blocked over the base so a multi-million-row
     base never materialises a [Q, N] matrix; a running top-k is merged per
-    block.
+    block. Hamming blocks are scored by K4 (``hamming_block``).
     """
-    require_full_f32_matmul()
+    if Metric(metric) != Metric.HAMMING:
+        require_full_f32_matmul()
     n, q = base.shape[0], queries.shape[0]
     dev = queries.device
     if n == 0:  # empty base: no neighbors
@@ -154,23 +136,27 @@ def exact_search(
 # ---------------------------------------------------------------------------
 
 def pack_bits(x: torch.Tensor) -> torch.Tensor:
-    """Pack a [..., dim] array into [..., ceil(dim/32)] 32-bit words (int64),
-    little-endian within a word (bit i of word w = dim 32w+i); positive
-    components set bits (the reference's quant_bits=1, options.c:137-158)."""
-    bits = (x > 0).to(torch.int64)
+    """Pack a [..., dim] array into [..., ceil(dim/32)] int32 words carrying
+    the uint32 bits, little-endian within a word (bit i of word w = dim
+    32w+i); positive components set bits (the reference's quant_bits=1,
+    options.c:137-158). One bit plane at a time, so the working set is the
+    [..., words] int64 accumulator, not a [..., dim] one."""
+    bits = (x > 0).to(torch.uint8)
     dim = bits.shape[-1]
     words = -(-dim // 32)
     pad = words * 32 - dim
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))
     bits = bits.reshape(bits.shape[:-1] + (words, 32))
-    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
-    return (bits << shifts).sum(-1)
+    acc = torch.zeros(bits.shape[:-1], dtype=torch.int64, device=x.device)
+    for i in range(32):
+        acc |= bits[..., i].to(torch.int64) << i
+    return to_words(acc)
 
 
 def unpack_bits(packed: torch.Tensor, dim: int) -> torch.Tensor:
     """Inverse of pack_bits -> float32 0/1 array of size dim."""
     shifts = torch.arange(32, dtype=torch.int64, device=packed.device)
-    bits = (_as_u32(packed)[..., :, None] >> shifts) & 1
+    bits = ((packed.to(torch.int64) & 0xFFFFFFFF)[..., :, None] >> shifts) & 1
     flat = bits.reshape(packed.shape[:-1] + (packed.shape[-1] * 32,))
     return flat[..., :dim].float()

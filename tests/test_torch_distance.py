@@ -1,5 +1,6 @@
 """Parity: the port's ops/distance.py against lantern_tpu's (rtol 1e-5; the
-hamming and bit-packing results are integers and compared exactly)."""
+hamming and bit-packing results are integers and compared exactly). The
+port's packed words are int32 tensors carrying the uint32 bits."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,6 +9,7 @@ import torch
 
 from lantern_tpu.ops import distance as jd
 from lantern_tpu_torch.ops import distance as td
+from lantern_tpu_torch.ops import hamming as th
 
 RTOL, ATOL = 1e-5, 1e-5
 
@@ -35,7 +37,7 @@ def test_hamming_and_popcount(rng):
     np.testing.assert_array_equal(
         td.hamming_dist(_t(a.view(np.int32)), _t(b.view(np.int32))).numpy(), want)
     np.testing.assert_array_equal(
-        td._popcount_u32(_t(a.astype(np.int64))).numpy(),
+        th._popcount_u32(_t(a.astype(np.int64))).numpy(),
         np.asarray(jd._popcount_u32(jnp.asarray(a))))
 
 
@@ -44,10 +46,13 @@ def test_pairwise_dist(rng, metric):
     if metric == 8:
         q = rng.integers(0, 2**32, size=(6, 3), dtype=np.uint32)
         b = rng.integers(0, 2**32, size=(40, 3), dtype=np.uint32)
+        want = np.asarray(jd.pairwise_dist(q, b, metric))
+        got = td.pairwise_dist(_t(q.view(np.int32)), _t(b.view(np.int32)),
+                               metric)
+        np.testing.assert_array_equal(got.numpy(), want)
         got = td.pairwise_dist(_t(q.astype(np.int64)), _t(b.astype(np.int64)),
                                metric)
-        np.testing.assert_array_equal(got.numpy(),
-                                      np.asarray(jd.pairwise_dist(q, b, metric)))
+        np.testing.assert_array_equal(got.numpy(), want)
         return
     q = rng.standard_normal((6, 20)).astype(np.float32)
     b = rng.standard_normal((40, 20)).astype(np.float32)
@@ -86,7 +91,8 @@ def test_exact_search_refuses_tf32(rng, monkeypatch):
 def test_pack_unpack_bits(rng):
     x = rng.standard_normal((4, 70)).astype(np.float32)
     packed = td.pack_bits(_t(x))
-    np.testing.assert_array_equal(packed.numpy(),
+    assert packed.dtype == torch.int32
+    np.testing.assert_array_equal(packed.numpy().view(np.uint32),
                                   np.asarray(jd.pack_bits(jnp.asarray(x))))
     np.testing.assert_array_equal(td.unpack_bits(packed, 70).numpy(),
                                   np.asarray(jd.unpack_bits(jd.pack_bits(

@@ -16,6 +16,13 @@ from lantern_tpu_torch.config import Metric
 from lantern_tpu_torch.ops.gather_dists import gather_dists, gather_dists_ref
 
 
+@pytest.fixture()
+def rng():
+    """The conftest's seeded generator, repeated here so that ``pytest
+    --noconftest -m cuda`` runs this file on a machine without jax."""
+    return np.random.default_rng(0xA47E60DB)
+
+
 def _inputs(rng, n, d, q, c):
     vecs = rng.standard_normal((n, d)).astype(np.float32)
     ids = rng.integers(0, n, size=(q, c)).astype(np.int32)

@@ -10,6 +10,14 @@ both build the same graph over the same decoded rows: every mode (flat,
 graph, rerank=L, rerank="auto") returns the same labels (up to the order
 of exactly tied distances; distances within 1e-4 abs + 1e-4 rel), and
 calibrate_rerank picks the same depth from the same coverages.
+
+i8 indexes (quant=I8) and b1 hamming indexes (metric=HAMMING, quant=B1, fed
+float rows that both binarise, or packed uint32 words) go through both
+facades. i8 flat labels are equal, distances within 1e-4 abs + 1e-5 rel;
+hamming distances are exact integers and equal, and labels equal up to the
+order of tied distances (ties are the rule at small widths). Graph recall@10
+(tie-aware for hamming: a label counts if its distance is within the k-th
+true distance) matches the reference's within 0.01.
 """
 
 import numpy as np
@@ -105,13 +113,6 @@ def test_rows_for_labels_and_size(pair):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="I8"):
-        lantern_tpu_torch.Index(HnswParams(dim=8, quant=QuantKind.I8),
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="hamming"):
-        lantern_tpu_torch.Index(
-            HnswParams(dim=64, metric=Metric.HAMMING, quant=QuantKind.B1),
-            device="cpu")
     ix = lantern_tpu_torch.Index(HnswParams(dim=8), device="cpu")
     with pytest.raises(NotImplementedError, match="device-builder"):
         ix.add(np.ones((4, 8), np.float32), build="device")
@@ -223,3 +224,134 @@ def test_pq_add_trains_on_first_batch_and_keeps_raw_rows():
     with pytest.raises(ValueError, match="pq=True"):
         lantern_tpu_torch.Index(HnswParams(dim=8), device="cpu").train_pq(
             base[:, :8])
+
+
+QUANT_CONFIGS = {
+    "i8": dict(quant=QuantKind.I8),
+    "b1_float": dict(metric=Metric.HAMMING, quant=QuantKind.B1),
+    "b1_words": dict(metric=Metric.HAMMING, quant=QuantKind.B1),
+}
+
+
+def _bit_rows(rng, n, words, centres=24):
+    """Clustered packed rows: centre XOR (r1 & r2 & r3), p(flip) = 1/8."""
+    c = rng.integers(0, 2**32, (centres, words), dtype=np.uint32)
+    r = [rng.integers(0, 2**32, (n, words), dtype=np.uint32) for _ in range(3)]
+    return c[rng.integers(0, centres, n)] ^ (r[0] & r[1] & r[2])
+
+
+@pytest.fixture(scope="module", params=sorted(QUANT_CONFIGS))
+def quant_pair(request):
+    name = request.param
+    if name == "b1_words":
+        rng = np.random.default_rng(6)
+        rows = _bit_rows(rng, 1540, 3)
+        base, q = rows[:1500], rows[1500:]
+    else:
+        base, q = _data()
+    labels = np.arange(len(base), dtype=np.uint64) * np.uint64(7) + np.uint64(11)
+    p = HnswParams(dim=96 if name == "b1_words" else 32, m=8,
+                   ef_construction=48, **QUANT_CONFIGS[name])
+    ref = lantern_tpu.Index(p, capacity=256, seed=0)
+    port = lantern_tpu_torch.Index(p, capacity=256, seed=0, device="cpu")
+    for ix in (ref, port):
+        ix.add(base, labels=labels, nthreads=1)
+        ix.delete(labels[::9])
+    return name, ref, port, base, q, labels
+
+
+def _words_of(port, x):
+    """The index's packed uint32 rows/queries for hamming distances."""
+    x = np.asarray(x)
+    if x.dtype == np.uint32:
+        return x
+    from lantern_tpu_torch.quant.scalar import binarize
+
+    return binarize(torch.from_numpy(x)).numpy().view(np.uint32)
+
+
+def _label_dists(port, base, q, labels, lab):
+    """Exact hamming distances of the returned labels (inf for label 0)."""
+    table = np.array([bin(i).count("1") for i in range(256)], np.int64)
+    words, qw = _words_of(port, base), _words_of(port, q)
+    rows = port.rows_for_labels(lab.ravel()).reshape(lab.shape)
+    x = np.bitwise_xor(qw[:, None, :], words[np.maximum(rows, 0)])
+    d = table[x.view(np.uint8)].sum(-1).astype(np.float32)
+    return np.where(rows >= 0, d, np.inf)
+
+
+def test_quant_flat_matches_reference(quant_pair):
+    name, ref, port, base, q, labels = quant_pair
+    g = port.device_graph
+    if name == "i8":
+        assert g.vectors.dtype == torch.int8 and g.vec_scales is not None
+    else:
+        assert g.vectors.dtype == torch.int32
+        assert g.vectors.shape[1] == -(-port.params.dim // 32)
+    for kw in ({}, {"deny_labels": labels[100:900]}):
+        wd, wl = ref.search(q, k=K, mode="flat", **kw)
+        d, lab = port.search(q, k=K, mode="flat", **kw)
+        assert lab.dtype == np.uint64
+        if name == "i8":
+            np.testing.assert_array_equal(lab, wl)
+            np.testing.assert_allclose(d, wd, rtol=1e-5, atol=1e-4)
+            continue
+        np.testing.assert_array_equal(d, wd)  # exact integers
+        np.testing.assert_array_equal(_label_dists(port, base, q, labels, lab), d)
+        for row, wrow, drow in zip(lab, wl, d):
+            inner = drow < drow[-1]
+            assert set(row[inner].tolist()) == set(wrow[inner].tolist())
+    assert not set(labels[::9].tolist()) & set(lab.ravel().tolist())
+
+
+def test_quant_graph_recall_matches_reference(quant_pair):
+    name, ref, port, base, q, labels = quant_pair
+    d_true, truth = port.search(q, k=K, mode="flat")
+    _, wl = ref.search(q, k=K, mode="graph")
+    d, lab, stats = port.search(q, k=K, mode="graph", with_stats=True)
+    assert stats["mode"] == "graph"
+    if name == "i8":
+        got, want = _recall(lab, truth), _recall(wl, truth)
+    else:  # tie-aware: a label within the k-th true distance counts
+        kth = d_true[:, -1:]
+        got = np.mean(_label_dists(port, base, q, labels, lab) <= kth)
+        want = np.mean(_label_dists(port, base, q, labels, wl) <= kth)
+        np.testing.assert_array_equal(
+            _label_dists(port, base, q, labels, lab), d)
+    assert abs(got - want) <= 0.01 + 1e-9, name
+    assert got >= 0.9
+
+
+def test_costmodel_counts_stored_bytes(quant_pair):
+    """auto dispatch prices the table as stored: int32 words (4 bytes each,
+    ceil(dim/32) a row) for b1, one byte a component for i8."""
+    from lantern_tpu_torch.costmodel import choose_search_strategy
+
+    name, _, port, _, _, _ = quant_pair
+    g = port.device_graph
+    row = port.params.dim if name == "i8" else 4 * -(-port.params.dim // 32)
+    table = port.size * row
+    width, itemsize = g.vectors.shape[1], g.vectors.element_size()
+    assert width * itemsize == row
+    assert choose_search_strategy(port.size, width, itemsize, table) == "flat"
+    assert choose_search_strategy(port.size, width, itemsize, table - 1) == "graph"
+
+
+def test_b1_takes_words_and_floats_alike():
+    """Float rows and queries are binarised by sign: the same index and
+    results as their packed words; auto mode picks the flat scan."""
+    base, q = _data(dim=70)  # 3 words, the last one partial
+    p = HnswParams(dim=70, m=8, ef_construction=48, metric=Metric.HAMMING,
+                   quant=QuantKind.B1)
+    floats = lantern_tpu_torch.Index(p, capacity=256, device="cpu")
+    packed = lantern_tpu_torch.Index(p, capacity=256, device="cpu")
+    floats.add(base, nthreads=1)
+    packed.add(_words_of(floats, base), nthreads=1)
+    words = _words_of(floats, q)
+    for mode in ("flat", "graph"):
+        d, lab = floats.search(q, k=K, mode=mode)
+        d2, lab2 = packed.search(words, k=K, mode=mode)
+        np.testing.assert_array_equal(lab, lab2)
+        np.testing.assert_array_equal(d, d2)
+    _, _, stats = floats.search(words, k=K, with_stats=True)
+    assert stats["mode"] == "flat"

@@ -20,7 +20,9 @@ PROBE = textwrap.dedent("""
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "lantern_tpu", "flax"))
     assert not bad, bad
-    assert len(mods) >= 12, mods
+    assert len(mods) >= 18, mods
+    assert {"lantern_tpu_torch.ops.hamming",
+            "lantern_tpu_torch.quant.scalar"} <= set(mods), mods
     import torch
     from lantern_tpu_torch import HnswParams, Index
     if not torch.cuda.is_available():

@@ -1,7 +1,10 @@
 """Parity: the port's copy of the native HNSW engine against lantern_tpu's.
 
 The same source, seed, rows and nthreads=1 must give byte-equal graphs
-(tolerance: exact equality of every exported array).
+(tolerance: exact equality of every exported array), for f32 rows (l2sq,
+cos) and for packed uint32 words (hamming, ceil(dim/32) words a row).
+nthreads=1 because a multi-threaded build depends on thread timing (fault
+F1 of the reference).
 """
 
 import pathlib
@@ -28,11 +31,22 @@ def test_engine_source_is_the_reference_source():
     assert f"constexpr int LMAX = {LMAX};".encode() in port
 
 
-@pytest.mark.parametrize("metric", ["l2sq", "cos"])
+def _rows(rng, metric, n, dim):
+    if metric != "hamming":
+        return rng.standard_normal((n, dim)).astype(np.float32)
+    # clustered bit rows: 12 centres, each bit flipped with p = 1/8
+    words = -(-dim // 32)
+    centres = rng.integers(0, 2**32, (12, words), dtype=np.uint32)
+    flips = [rng.integers(0, 2**32, (n, words), dtype=np.uint32) for _ in range(3)]
+    return centres[rng.integers(0, 12, n)] ^ (flips[0] & flips[1] & flips[2])
+
+
+@pytest.mark.parametrize("metric", ["l2sq", "cos", "hamming"])
 def test_engine_matches_reference(rng, metric):
-    base = rng.standard_normal((600, 24)).astype(np.float32)
+    dim = 70 if metric == "hamming" else 24  # 3 words, the last one partial
+    base = _rows(rng, metric, 600, dim)
     labels = rng.permutation(10**6)[:600].astype(np.uint64)
-    kw = dict(dim=24, m=8, ef_construction=32, metric=Metric.from_string(metric))
+    kw = dict(dim=dim, m=8, ef_construction=32, metric=Metric.from_string(metric))
     port = NativeHnsw(HnswParams(**kw), capacity=256, seed=3)
     ref = JaxNativeHnsw(JaxHnswParams(**kw), capacity=256, seed=3)
     for eng in (port, ref):
@@ -45,12 +59,21 @@ def test_engine_matches_reference(rng, metric):
     for name in FIELDS:
         np.testing.assert_array_equal(getattr(port, name), getattr(ref, name),
                                       err_msg=name)
-    ids_p, d_p = port.search(base[5] + 0.01, k=10, ef=32)
-    ids_r, d_r = ref.search(base[5] + 0.01, k=10, ef=32)
+    query = base[5] ^ np.uint32(0b1011) if metric == "hamming" else base[5] + 0.01
+    ids_p, d_p = port.search(query, k=10, ef=32)
+    ids_r, d_r = ref.search(query, k=10, ef=32)
     np.testing.assert_array_equal(ids_p, ids_r)
     np.testing.assert_array_equal(d_p, d_r)
+    if metric == "hamming":
+        assert port.vectors.dtype == np.uint32 and port.vectors.shape[1] == 3
 
 
 def test_engine_refuses_hamming():
-    with pytest.raises(NotImplementedError, match="hamming"):
-        NativeHnsw(HnswParams(dim=64, metric=Metric.HAMMING))
+    """A hamming engine takes ceil(dim/32) words a row and refuses dim-wide
+    float rows, as the reference's does."""
+    p = HnswParams(dim=64, metric=Metric.HAMMING)
+    port, ref = NativeHnsw(p, capacity=16), JaxNativeHnsw(p, capacity=16)
+    for eng in (port, ref):
+        with pytest.raises(ValueError, match="width 64 != expected 2"):
+            eng.add(np.ones((4, 64), np.float32), nthreads=1)
+    assert port.words == ref.words == 2

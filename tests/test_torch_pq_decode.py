@@ -21,6 +21,14 @@ import torch
 
 from lantern_tpu_torch.ops.pq_decode import codebook_bf16, pq_decode, pq_decode_ref
 
+
+@pytest.fixture()
+def rng():
+    """The conftest's seeded generator, repeated here so that ``pytest
+    --noconftest -m cuda`` runs this file on a machine without jax."""
+    return np.random.default_rng(0xA47E60DB)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 HILO = [(32, 256, 4), (240, 256, 4)]  # K = 256: the hi/lo kernels' shapes
 SHAPES = HILO + [(24, 16, 40), (8, 32, 4)]

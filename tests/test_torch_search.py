@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from lantern_tpu.config import HnswParams, Metric
+from lantern_tpu.config import HnswParams, Metric, QuantKind
 from lantern_tpu.graph.device import to_device as jax_to_device
 from lantern_tpu.graph.search import search_batched as jax_search
 from lantern_tpu.native import NativeHnsw as JaxNativeHnsw
@@ -70,7 +70,8 @@ def _compare(g, q, ties=False, **kw):
     if ex is not None:
         kw["exclude"] = torch.from_numpy(np.array(ex))
     gather_dists.launches = 0
-    td, ti, tl, ts = search_batched(_port(g), torch.from_numpy(q),
+    tq = q.view(np.int32) if q.dtype == np.uint32 else q  # words: int32 bits
+    td, ti, tl, ts = search_batched(_port(g), torch.from_numpy(tq),
                                     with_stats=True, **kw)
     assert gather_dists.launches == 0  # CPU tensors take the plain version
     same = ti.numpy() == np.asarray(ji)
@@ -191,3 +192,99 @@ def test_pq_search_matches_reference(pq_graphs, case):
     pq_decode.launches = 0
     _compare(g, q, ties=True, **kw)
     assert pq_decode.launches == 0  # CPU tensors: the plain decode
+
+
+@pytest.fixture(scope="module")
+def quant_graphs():
+    """Reference graphs over i8-dequantised rows (l2sq, cos) and over
+    clustered 80-bit words (hamming), built with nthreads=1."""
+    from lantern_tpu.quant.scalar import dequantize_i8, quantize_i8
+
+    rng = np.random.default_rng(0xA47E60DD)
+    base, q = _data(rng, 800, 32)
+    deq = np.asarray(dequantize_i8(*quantize_i8(jnp.asarray(base))))
+    out = {}
+    for metric in (Metric.L2SQ, Metric.COS):
+        eng = JaxNativeHnsw(HnswParams(dim=32, m=8, ef_construction=48,
+                                       metric=metric), capacity=800, seed=0)
+        eng.add(deq, nthreads=1)
+        out[f"i8_{metric.name.lower()}"] = (jax_to_device(eng, quant=QuantKind.I8), q)
+    centres = rng.integers(0, 2**32, (16, 3), dtype=np.uint32)
+    flips = [rng.integers(0, 2**32, (824, 3), dtype=np.uint32) for _ in range(3)]
+    words = centres[rng.integers(0, 16, 824)] ^ (flips[0] & flips[1] & flips[2])
+    eng = JaxNativeHnsw(HnswParams(dim=80, m=8, ef_construction=48,
+                                   metric=Metric.HAMMING), capacity=800, seed=0)
+    eng.add(words[:800], nthreads=1)
+    out["hamming"] = (jax_to_device(eng), words[800:])
+    return out
+
+
+@pytest.mark.parametrize("case", ["i8_l2sq", "i8_cos", "i8_tombstones",
+                                  "i8_upper_descent"])
+def test_i8_search_matches_reference(quant_graphs, case):
+    """The i8 beam (widened codes x vec_scales, the i8 entry scan) on a
+    reference i8 graph: ids equal, distances within the f32 tolerances,
+    stats equal. K1 is never launched."""
+    g, q = quant_graphs["i8_cos" if case == "i8_cos" else "i8_l2sq"]
+    kw = dict(k=10, ef=32, seeds=8)
+    if case == "i8_tombstones":
+        mask = np.random.default_rng(1).random(g.cap) < 0.25
+        g = g.replace(deleted=jnp.asarray(mask))
+    elif case == "i8_upper_descent":
+        g = g.replace(upper_ids=None)
+        kw["seeds"] = 1
+    _compare(g, q, **kw)
+
+
+def _hamming_dists(words, q, ids):
+    """Exact hamming distances [Q, k] of ``ids`` (inf where id < 0)."""
+    table = np.array([bin(i).count("1") for i in range(256)], np.int64)
+    x = np.bitwise_xor(q[:, None, :], words[np.maximum(ids, 0)])
+    d = table[x.view(np.uint8)].sum(-1).astype(np.float32)
+    return np.where(ids >= 0, d, np.inf)
+
+
+@pytest.mark.parametrize("case", ["seeds8", "seeds1", "tombstones",
+                                  "upper_descent"])
+def test_hamming_search_matches_reference(quant_graphs, case):
+    """The hamming beam on a reference hamming graph (uint32 words carried
+    across as int32 words).
+
+    Hamming distances are small integers, so ties are the rule, and
+    torch.topk and lax.top_k pick different members of a tie at the k-th
+    place of the entry scan. The beams then start from different (equally
+    distant) seeds, and visited/expanded differ on some queries. So with
+    the entry scan the test holds per-query distance profiles exactly
+    equal, every returned id to its returned distance, the labels, and
+    ``iterations``. The greedy-descent entry (no upper scan; argmin takes
+    the first minimum in both) starts both beams alike: there ids are equal
+    up to tied distances and every statistic is equal.
+    """
+    from lantern_tpu.graph.search import search_batched as jax_search_batched
+
+    g, q = quant_graphs["hamming"]
+    kw = dict(k=10, ef=32, seeds=1 if case == "seeds1" else 8)
+    if case == "tombstones":
+        mask = np.random.default_rng(1).random(g.cap) < 0.25
+        g = g.replace(deleted=jnp.asarray(mask))
+    elif case == "upper_descent":
+        g = g.replace(upper_ids=None)
+        kw["seeds"] = 1
+        _compare(g, q, ties=True, **kw)
+        return
+    jd, ji, jl, js = jax_search_batched(g, jnp.asarray(q), with_stats=True, **kw)
+    td, ti, tl, ts = search_batched(_port(g), torch.from_numpy(q.view(np.int32)),
+                                    with_stats=True, **kw)
+    words = np.asarray(g.vectors)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))  # profiles
+    np.testing.assert_array_equal(_hamming_dists(words, q, ti.numpy()),
+                                  td.numpy())
+    np.testing.assert_array_equal(ts["iterations"].numpy(),
+                                  np.asarray(js["iterations"]))
+    jlab = np.asarray(g.labels)
+    want = jlab[..., 0].astype(np.uint64) | (jlab[..., 1].astype(np.uint64) << 32)
+    ids = ti.numpy()
+    np.testing.assert_array_equal(tl.numpy().view(np.uint64),
+                                  np.where(ids >= 0, want[np.maximum(ids, 0)], 0))
+    if case == "tombstones":
+        assert not mask[ids[ids >= 0]].any()
