@@ -10,7 +10,8 @@ block; above, it walks blocks and merges a running top-k.
 
 i8 tables (int8 codes with per-row scales) score bf16-rounded queries
 against the codes widened exactly to f32, then scale the products per row.
-Hamming tables (int32 words) score -distance with K4 (``ops/hamming.py``).
+Hamming tables (int32 words) score -distance, tombstones at -inf, in one
+K4 launch (``ops/hamming.py::hamming_scores``).
 
 PQ tables scan by decoding each block of codes with the PQ decode kernel
 (``ops/pq_decode.py``, which also returns |x|^2) and scoring the decoded
@@ -24,7 +25,7 @@ import torch
 
 from lantern_tpu_torch.config import Metric
 from lantern_tpu_torch.ops.distance import require_full_f32_matmul
-from lantern_tpu_torch.ops.hamming import hamming_block
+from lantern_tpu_torch.ops.hamming import hamming_scores
 from lantern_tpu_torch.ops.pq_decode import codebook_bf16, pq_decode
 
 # one-shot scans materialise a [Q, N] score block; beyond this N the scan is
@@ -110,7 +111,8 @@ def flat_search(
     ``deleted``: optional [N] bool mask of rows excluded from the results.
     ``exact=True`` is the ground-truth mode: it refuses to run with TF32
     matmuls enabled (top-k itself is always exact here). Hamming scores
-    -``hamming_block`` (K4 on the card); tied distances come in any order.
+    ``hamming_scores`` (K4 on the card, mask included); tied distances come
+    in any order.
     """
     metric = Metric(metric)
     hamming = metric == Metric.HAMMING
@@ -130,13 +132,13 @@ def flat_search(
         block = min(n, ONESHOT_MAX_N)
 
     def score_fn(start, stop):
-        if hamming:
-            s = hamming_block(qf, vectors[start:stop]).neg_()
-        else:
-            s = _scores(vectors[start:stop], sq_norms[start:stop], qf, metric,
-                        None if vec_scales is None else vec_scales[start:stop])
-        if deleted is not None:
-            s.masked_fill_(deleted[None, start:stop], float("-inf"))
+        dele = None if deleted is None else deleted[start:stop]
+        if hamming:  # K4 negates and masks in its epilogue
+            return hamming_scores(qf, vectors[start:stop], dele)
+        s = _scores(vectors[start:stop], sq_norms[start:stop], qf, metric,
+                    None if vec_scales is None else vec_scales[start:stop])
+        if dele is not None:
+            s.masked_fill_(dele[None, :], float("-inf"))
         return s
 
     return _blocked_flat_topk(score_fn, n, min(k, n), k, block, q_sq, metric)

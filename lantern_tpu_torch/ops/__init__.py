@@ -17,6 +17,8 @@ from lantern_tpu_torch.ops.hamming import (  # noqa: F401
     hamming_block,
     hamming_block_ref,
     hamming_exact_topk,
+    hamming_scores,
+    hamming_scores_ref,
 )
 from lantern_tpu_torch.ops.pq_decode import (  # noqa: F401
     codebook_bf16,

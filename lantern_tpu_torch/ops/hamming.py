@@ -7,11 +7,14 @@ are int32 tensors carrying the uint32 bits, 4 bytes a word; a word with its
 top bit set is negative as an int32 and counts the same 32 bits.
 
 On CUDA tensors it launches the hand-written Hopper kernel
-``csrc/hamming.cu`` (built at first use) and counts the launch in
-``hamming_block.launches``; on CPU tensors it runs ``hamming_block_ref``, the
-plain PyTorch version. A CUDA call never falls back: a build or launch
-failure raises. ``hamming_exact_topk`` is the exact hamming k-NN oracle over
-a large base: one ``hamming_block`` per block of rows and a running top-k.
+``csrc/hamming.cu`` (the +-1 product on the int8 tensor cores, built at first
+use) and counts the launch in ``hamming_block.launches``; on CPU tensors it
+runs ``hamming_block_ref``, the plain PyTorch version. A CUDA call never
+falls back: a build or launch failure raises. ``hamming_scores`` is the flat
+scan's score block, ``-hamming_block`` with -inf at deleted rows, from the
+same kernel's score epilogue (plain version ``hamming_scores_ref``).
+``hamming_exact_topk`` is the exact hamming k-NN oracle over a large base:
+one ``hamming_block`` per block of rows and a running top-k.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ _U32 = 0xFFFFFFFF
 # popcount keeps up to three such buffers alive): bounds its working set at
 # any shape, so it can run on the card at the flat scan's shape
 _REF_CHUNK_ELEMS = 1 << 24
+# widest rows the CUDA kernel takes (its int32 counts hold 32 W' exactly)
+_MAX_WORDS = 1 << 20
 
 
 def _as_u32(x: torch.Tensor) -> torch.Tensor:
@@ -67,6 +72,16 @@ def hamming_block_ref(queries: torch.Tensor, base: torch.Tensor) -> torch.Tensor
     return out
 
 
+def hamming_scores_ref(queries: torch.Tensor, base: torch.Tensor,
+                       deleted: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ``hamming_scores``: the negated distances,
+    -inf at the rows ``deleted`` marks."""
+    s = hamming_block_ref(queries, base).neg_()
+    if deleted is not None:
+        s.masked_fill_(deleted[None, :], float("-inf"))
+    return s
+
+
 @functools.cache
 def _kernel():
     """The built kernel's C entry point (nvcc runs on the first call)."""
@@ -75,25 +90,23 @@ def _kernel():
     fn = cuda_library("hamming").ldb_hamming_block
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
+        [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_void_p]
     )
     return fn
 
 
-def hamming_block(queries: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
-    """All-pairs hamming distances: [Q, W] x [N, W] packed words -> [Q, N]
-    f32.
-
-    On CUDA both operands are contiguous int32 words on one device; the
-    plain CPU version takes any integer dtype holding 32-bit words.
-    """
+def _check_words(queries: torch.Tensor, base: torch.Tensor) -> None:
     if queries.dim() != 2 or base.dim() != 2 or queries.shape[1] != base.shape[1]:
         raise ValueError(
             f"need [Q, W] and [N, W] words, got {tuple(queries.shape)} and "
             f"{tuple(base.shape)}")
-    if not base.is_cuda:
-        return hamming_block_ref(queries, base)
+
+
+def _launch(queries: torch.Tensor, base: torch.Tensor,
+            deleted: torch.Tensor | None, scores: bool) -> torch.Tensor:
+    """One launch of the CUDA kernel: distances, or (``scores``) negated
+    distances with -inf at deleted rows. Checks what the kernel takes."""
     dev = base.device
     if queries.device != dev:
         raise ValueError(f"queries are on {queries.device}, base on {dev}")
@@ -104,8 +117,15 @@ def hamming_block(queries: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
         raise ValueError("queries and base must be contiguous")
     q, w = queries.shape
     n = base.shape[0]
-    if q > 65535 * 64:
-        raise ValueError(f"hamming_block takes at most {65535 * 64} queries")
+    if w > _MAX_WORDS:
+        raise ValueError(f"hamming kernels take at most {_MAX_WORDS} words a "
+                         f"row, got {w}")
+    if deleted is not None and (
+            deleted.dtype != torch.bool or deleted.shape != (n,)
+            or deleted.device != dev or not deleted.is_contiguous()):
+        raise ValueError(
+            f"deleted must be a contiguous [{n}] bool tensor on {dev}, got "
+            f"{deleted.dtype} {tuple(deleted.shape)} on {deleted.device}")
     out = torch.empty((q, n), dtype=torch.float32, device=dev)
     if q == 0 or n == 0:
         return out
@@ -113,16 +133,47 @@ def hamming_block(queries: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
               and base.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         rc = _kernel()(
-            queries.data_ptr(), base.data_ptr(), out.data_ptr(), q, n, w, vec,
+            queries.data_ptr(), base.data_ptr(),
+            None if deleted is None else deleted.data_ptr(), out.data_ptr(),
+            q, n, w, vec, int(scores),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"hamming_block kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"hamming kernel launch failed: CUDA error {rc}")
     hamming_block.launches += 1
     return out
 
 
+def hamming_block(queries: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """All-pairs hamming distances: [Q, W] x [N, W] packed words -> [Q, N]
+    f32.
+
+    On CUDA both operands are contiguous int32 words on one device; the
+    plain CPU version takes any integer dtype holding 32-bit words.
+    """
+    _check_words(queries, base)
+    if not base.is_cuda:
+        return hamming_block_ref(queries, base)
+    return _launch(queries, base, None, scores=False)
+
+
 hamming_block.launches = 0
+
+
+def hamming_scores(queries: torch.Tensor, base: torch.Tensor,
+                   deleted: torch.Tensor | None = None) -> torch.Tensor:
+    """The hamming flat scan's score block: [Q, N] f32 equal to
+    ``-hamming_block(queries, base)``, with -inf at the rows where
+    ``deleted`` ([N] bool) is set.
+
+    On CUDA it is K4's launch with the score epilogue (one pass over the
+    block; counted in ``hamming_block.launches``); on CPU tensors it runs
+    ``hamming_scores_ref``.
+    """
+    _check_words(queries, base)
+    if not base.is_cuda:
+        return hamming_scores_ref(queries, base, deleted)
+    return _launch(queries, base, deleted, scores=True)
 
 
 def hamming_exact_topk(queries: torch.Tensor, base: torch.Tensor, k: int,

@@ -3,12 +3,15 @@
 On the CPU the wrapper runs its plain version, hamming_block_ref, which is
 held against hamming_block in interpret mode exactly (the counts are
 integers), at Q and N that are no tile multiples, W = 1, 3, 4, 32, 48 and
-128 words, and words >= 2^31 (negative as int32). hamming_exact_topk is held
-to the reference's: distances exactly equal, ids equal up to the order of
-tied distances. The tests marked ``cuda`` hold the CUDA kernel bit-equal to
-hamming_block_ref on the card and skip where there is no card. This module
-imports jax only inside the CPU parity tests, so ``pytest -m cuda`` runs on a
-machine without jax.
+128 words, and words >= 2^31 (negative as int32). hamming_scores (the flat
+scan's negated, tombstone-masked block) is held exactly to the reference's
+``_hamming_scores`` plus its ``jnp.where`` mask, with no mask, a ragged one
+and an all-deleted one. hamming_exact_topk is held to the reference's:
+distances exactly equal, ids equal up to the order of tied distances. The
+tests marked ``cuda`` hold the CUDA kernel (both epilogues) bit-equal to the
+plain versions on the card, at tile edges and an unaligned row slice, and
+skip where there is no card. This module imports jax only inside the CPU
+parity tests, so ``pytest -m cuda`` runs on a machine without jax.
 """
 
 import numpy as np
@@ -21,6 +24,8 @@ from lantern_tpu_torch.ops.hamming import (
     hamming_block,
     hamming_block_ref,
     hamming_exact_topk,
+    hamming_scores,
+    hamming_scores_ref,
 )
 
 
@@ -34,6 +39,19 @@ def rng():
 # (Q, N, W): ragged Q and N; 1, 3, 4 words; 1024, 1536 and 4096 bits
 SHAPES = [(37, 333, 1), (5, 130, 3), (17, 257, 4), (9, 140, 32), (3, 129, 48),
           (2, 70, 128)]
+# the CUDA kernel's tile edges: 64 queries a warpgroup tile, 128 base rows a
+# block, 32 words kept expanded (33 takes a second chunk); Q and N one under
+# and one over
+EDGE_SHAPES = [(q, n, w) for w in (1, 3, 32, 33, 128)
+               for q, n in ((63, 127), (65, 129))]
+MASKS = ["none", "ragged", "all"]
+
+
+def _mask(rng, kind, n):
+    """No mask, a ragged one (about a third of the rows) or all deleted."""
+    if kind == "none":
+        return None
+    return np.ones(n, bool) if kind == "all" else rng.random(n) < 0.3
 
 
 def _words(rng, rows, w):
@@ -71,6 +89,65 @@ def test_ref_matches_pallas(rng, shape):
         hamming_block_ref(torch.from_numpy(qu.astype(np.int64)),
                           torch.from_numpy(bu.astype(np.int64))).numpy(), want)
     np.testing.assert_array_equal(pairwise_dist(qt, bt, 8).numpy(), want)
+
+
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("shape", SHAPES[:3] + [(9, 140, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_scores_match_reference(rng, shape, mask):
+    """hamming_scores == the reference flat scan's _hamming_scores plus its
+    tombstone mask (lantern_tpu/flat.py:78-84, 223-224), exactly."""
+    import jax.numpy as jnp
+
+    from lantern_tpu.flat import _hamming_scores
+
+    nq, n, w = shape
+    qu, qt = _words(rng, nq, w)
+    bu, bt = _words(rng, n, w)
+    dele = _mask(rng, mask, n)
+    want = _hamming_scores(jnp.asarray(bu), jnp.asarray(qu))
+    if dele is not None:
+        want = jnp.where(jnp.asarray(dele)[None, :], -jnp.inf, want)
+    hamming_block.launches = 0
+    got = hamming_scores(qt, bt, None if dele is None else torch.from_numpy(dele))
+    assert hamming_block.launches == 0  # CPU tensors: plain version
+    assert got.dtype == torch.float32 and got.shape == (nq, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(np.signbit(got.numpy()), np.signbit(np.asarray(want)))
+
+
+@pytest.mark.parametrize("mask", MASKS)
+def test_flat_scan_matches_reference(rng, mask):
+    """The hamming flat scan (hamming_scores inside) against the reference's
+    flat_search: distances exactly, ids up to ties, tombstones never
+    returned; an all-deleted table returns (inf, -1) everywhere."""
+    import jax.numpy as jnp
+
+    from lantern_tpu.flat import flat_search as jax_flat_search
+    from lantern_tpu_torch.config import Metric
+    from lantern_tpu_torch.flat import flat_search
+
+    centres = rng.integers(0, 2**32, (8, 3), dtype=np.uint32)
+    flips = [rng.integers(0, 2**32, (300, 3), dtype=np.uint32) for _ in range(3)]
+    v = centres[rng.integers(0, 8, 300)] ^ (flips[0] & flips[1] & flips[2])
+    q = v[rng.integers(0, 300, 11)] ^ np.uint32(0x80000001)
+    dele = _mask(rng, mask, 300)
+    jd = None if dele is None else jnp.asarray(dele)
+    td = None if dele is None else torch.from_numpy(dele)
+    wd, wi = jax_flat_search(jnp.asarray(v), jnp.zeros(300), jnp.asarray(q),
+                             k=10, metric=int(Metric.HAMMING), exact=True,
+                             deleted=jd)
+    d, ids = flat_search(torch.from_numpy(v.view(np.int32)), torch.zeros(300),
+                         torch.from_numpy(q.view(np.int32)), k=10,
+                         metric=Metric.HAMMING, exact=True, deleted=td)
+    d, ids, wd, wi = d.numpy(), ids.numpy(), np.asarray(wd), np.asarray(wi)
+    if mask == "all":
+        assert (ids == -1).all() and (wi == -1).all()
+        assert np.isinf(d).all() and np.isinf(wd).all()
+        return
+    _assert_topk_equal(d, ids.astype(np.int64), wd, wi, _naive(q, v))
+    if dele is not None:
+        assert not dele[ids].any()
 
 
 def test_ref_chunks_its_intermediate(rng, monkeypatch):
@@ -139,8 +216,9 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(1024, 70_001, 32), (130, 4099, 7)],
-                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize(
+    "shape", SHAPES + EDGE_SHAPES + [(1024, 70_001, 32), (130, 4099, 7)],
+    ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_ref_on_card(rng, cuda, shape):
     nq, n, w = shape
     _, qt = _words(rng, nq, w)
@@ -157,6 +235,29 @@ def test_kernel_matches_ref_on_card(rng, cuda, shape):
     shifted.copy_(b)
     assert shifted.data_ptr() % 16 != 0
     assert torch.equal(hamming_block(q, shifted), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_scores_kernel_matches_ref_on_card(rng, cuda, shape, mask):
+    nq, n, w = shape
+    _, qt = _words(rng, nq, w)
+    _, bt = _words(rng, n + 5, w)
+    dele = _mask(rng, mask, n)
+    dele = None if dele is None else torch.from_numpy(dele).to(cuda)
+    q = qt.to(cuda)
+    # a row slice of a larger table, as the flat scan passes it: five rows
+    # in, so an odd offset of words from the allocation
+    b = bt.to(cuda)[5:]
+    before = hamming_block.launches
+    got = hamming_scores(q, b, dele)
+    torch.cuda.synchronize()
+    assert hamming_block.launches == before + 1  # one launch: no extra pass
+    want = hamming_scores_ref(q, b, dele)
+    assert torch.equal(got, want)  # bit-equal, -inf included
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
 
 
 @pytest.mark.cuda
@@ -178,3 +279,9 @@ def test_kernel_rejects_bad_inputs_on_card(rng, cuda):
         hamming_block(qt.long().to(cuda), bt.to(cuda))
     with pytest.raises(ValueError, match="queries are on"):
         hamming_block(qt, bt.to(cuda))
+    with pytest.raises(ValueError, match="deleted"):
+        hamming_scores(qt.to(cuda), bt.to(cuda),
+                       torch.zeros(9, dtype=torch.uint8, device=cuda))
+    with pytest.raises(ValueError, match="deleted"):
+        hamming_scores(qt.to(cuda), bt.to(cuda),
+                       torch.zeros(8, dtype=torch.bool, device=cuda))
