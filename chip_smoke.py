@@ -57,8 +57,22 @@ Phases, each of which exits non-zero on failure:
    f32 truth and (flat) against an exact scan of the dequantised rows; no
    kernel launches (K1 and the decode kernel are bypassed, as in the
    reference);
-11. one JSON line of kernel numbers, the ``nvidia-smi`` line, and last the
-   result line ``{"ok": true, "device": {...}}``.
+11. the device build (``graph/build_device.py``): (a) ``Index(HnswParams(
+   dim=128, m=16, ef_construction=128)).add(base, build="device",
+   batch=1024)`` over the f32 phase's n rows with flat candidate pools, its
+   seconds beside phase 5's host build, one full round timed and one
+   profiled (top kernels, launches, device idle share, host and device time
+   of the candidate scan, pair distances, selection loops and reverse
+   passes), recall@10 at ef=64 with 8 seeds against phase 5's truth,
+   ``Index.validate()`` and the engine's own search; (b) ``add(extra,
+   build="device", candidates="beam")`` of INSERT_N new clustered
+   rows: ``device_insert`` through the beam, K1's launches, self-search
+   top-1 of the new rows, validation; (c), after phase 9, a hamming index
+   built with ``build="device"`` over phase 9's rows: K4's launches,
+   tie-aware recall@10;
+12. one JSON line of kernel numbers (K1's and K4's ``build_launches`` from
+   (b) and (c)), the ``nvidia-smi`` line, and last the result line
+   ``{"ok": true, "device": {...}}``.
 
 Needs the ``lantern_tpu_torch`` package beside it and a CUDA device; never
 imports jax or lantern_tpu.
@@ -75,6 +89,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from lantern_tpu_torch import HnswParams, Index
 from lantern_tpu_torch.config import Metric, QuantKind
@@ -90,6 +105,7 @@ from lantern_tpu_torch.ops.hamming import (
     hamming_scores_ref,
 )
 from lantern_tpu_torch.ops.pq_decode import codebook_bf16, pq_decode, pq_decode_ref
+from lantern_tpu_torch.graph import build_device
 
 DIM, K, BATCH, N_BATCHES = 128, 10, 1024, 4
 RTOL, ATOL = 1e-5, 1e-4
@@ -114,6 +130,14 @@ HAM_WORDS = HAM_DIM // 32
 HAM_FLAT_RECALL_MIN, HAM_GRAPH_RECALL_MIN = 0.999, 0.90
 I8_RECALL_MIN = 0.85  # the reference's own i8 floor (tests/test_quant.py:79)
 I8_DEQ_FLAT_RECALL_MIN = 0.98
+INSERT_N = 65_536  # rows of the device-build phase's beam inserts
+INSERT_SELF_MIN = 0.99  # self-search top-1 of the inserted rows
+ENGINE_PROBES = 16  # built rows the engine's own search must find at rank 0
+# full-batch rounds of the device build: ROUND_WINDOW of them timed from
+# PROFILED_ROUND on, then the next one profiled
+PROFILED_ROUND, ROUND_WINDOW = 400, 8
+BUILD_SPANS = ("build.candidates", "build.pair_dists", "build.select",
+               "build.reverse")
 
 
 def fail(msg: str) -> None:
@@ -742,8 +766,9 @@ def phase_hamming_path(n, seed):
                device="cuda")
     t0 = time.perf_counter()
     ix.add(rows, nthreads=0)
+    build_s = time.perf_counter() - t0
     log(f"hamming host build: {n} rows x {HAM_DIM} bits (m=16, "
-        f"ef_construction=128, all host cores) in {time.perf_counter() - t0:.1f} s")
+        f"ef_construction=128, all host cores) in {build_s:.1f} s")
     graph = ix.device_graph
     log(f"hamming device mirror: words {tuple(graph.vectors.shape)} "
         f"{graph.vectors.dtype}, {graph.vectors.numel() * 4 / 2**20:.0f} MiB")
@@ -813,7 +838,7 @@ def phase_hamming_path(n, seed):
     if r["hamming_graph"] < HAM_GRAPH_RECALL_MIN:
         fail(f"hamming graph tie-aware recall@10 {r['hamming_graph']} < "
              f"{HAM_GRAPH_RECALL_MIN}")
-    return launches
+    return launches, rows, queries, gt_i, gt_d, build_s
 
 
 def phase_i8_path(base, queries, queries_dev, gt_i, seed):
@@ -869,6 +894,198 @@ def phase_i8_path(base, queries, queries_dev, gt_i, seed):
     if deq_r < I8_DEQ_FLAT_RECALL_MIN:
         fail(f"i8 flat recall@10 against the dequantised rows {deq_r} < "
              f"{I8_DEQ_FLAT_RECALL_MIN}")
+
+
+class RoundProbe:
+    """Wraps the device builder's round function for one build: counts the
+    rounds, times ROUND_WINDOW full-batch rounds from the ``at``-th on
+    (host clock, a device sync at either end, so host and device overlap
+    as in the build) and runs the next full round under torch.profiler
+    (CPU and CUDA). Restores the function on exit. ``report`` fails if the
+    build never reached the profiled round."""
+
+    def __init__(self, at: int = PROFILED_ROUND):
+        self.at, self.rounds, self.full = at, 0, 0
+        self.round_ms = self.events = None
+
+    def __enter__(self):
+        self.real = real = build_device._insert_round
+
+        def wrapped(st, ids, *a, **kw):
+            self.rounds += 1
+            if int((np.asarray(ids) >= 0).sum()) != BATCH:
+                return real(st, ids, *a, **kw)
+            self.full += 1
+            if self.full == self.at:
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+            if self.full != self.at + ROUND_WINDOW:
+                return real(st, ids, *a, **kw)
+            torch.cuda.synchronize()
+            self.round_ms = (time.perf_counter() - self.t0) * 1e3 / ROUND_WINDOW
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                real(st, ids, *a, **kw)
+                torch.cuda.synchronize()
+            self.events = prof.events()
+            return st
+
+        build_device._insert_round = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        build_device._insert_round = self.real
+
+    def report(self, label):
+        """Log the profiled round: its device busy time (the kernels' and
+        copies' own durations), launches and top kernels, the idle share
+        against the timed rounds' mean, and each span of ``build_device``
+        (``record_function``): its host time and its kernels' device time,
+        both inclusive (the reverse passes include their own pair distances
+        and selection loops)."""
+        if self.events is None:
+            fail(f"{label} round profile: not measured (the build had "
+                 f"{self.full} full rounds, fewer than "
+                 f"{self.at + ROUND_WINDOW})")
+        kernels, spans = {}, {}
+        for e in self.events:
+            if e.device_type == DeviceType.CUDA and e.name not in BUILD_SPANS:
+                k = kernels.setdefault(e.name, [0.0, 0])
+                k[0] += e.self_device_time_total / 1e3
+                k[1] += 1
+            elif e.device_type == DeviceType.CPU and e.name in BUILD_SPANS:
+                sp = spans.setdefault(e.name, {"host_ms": 0.0, "device_ms": 0.0,
+                                               "calls": 0})
+                sp["host_ms"] += e.cpu_time_total / 1e3
+                sp["device_ms"] += e.device_time_total / 1e3
+                sp["calls"] += 1
+        busy_ms = sum(v[0] for v in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+        row = {"build": label, "profiled_round": self.at + ROUND_WINDOW,
+               "batch": BATCH, "rounds": self.rounds,
+               "round_ms_mean_of_window": self.round_ms,
+               "window": ROUND_WINDOW, "device_busy_ms": busy_ms,
+               "idle_share": 1.0 - busy_ms / self.round_ms,
+               "launches": sum(v[1] for v in kernels.values()),
+               "spans": spans,
+               "top": [[k[:70], v[0], v[1]] for k, v in top]}
+        log("build round profile " + json.dumps(row))
+        return row
+
+
+def phase_device_build(base, queries, gt_i, centers, host_build_s, seed):
+    """(a) the bulk device build of the f32 rows, (b) beam inserts into it.
+    Returns K1's launches in (b)."""
+    n = base.shape[0]
+    gather_dists.launches = pq_decode.launches = hamming_block.launches = 0
+    ix = Index(HnswParams(dim=DIM, m=16, ef_construction=128), capacity=n,
+               seed=seed, device="cuda")
+    t0 = time.perf_counter()
+    with RoundProbe() as probe:
+        ix.add(base, build="device", batch=BATCH, seed=seed)
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"device build: {n} rows x {DIM} (m=16, ef_construction=128, batch "
+        f"{BATCH}, flat pools) in {build_s:.1f} s over {probe.rounds} rounds "
+        f"({build_s / probe.rounds * 1e3:.1f} ms a round, import into the "
+        f"engine included); host build (phase 5, all host cores) "
+        f"{host_build_s:.1f} s")
+    probe.report("f32 flat")
+    launched = (gather_dists.launches, pq_decode.launches, hamming_block.launches)
+    log(f"device build launches (K1, decode, K4): {launched}")
+    if any(launched):
+        fail(f"the flat f32 device build launched kernels {launched}")
+    t0 = time.perf_counter()
+    rep = ix.validate()
+    log(f"device build validate: ok {rep.ok}, {rep.n_reachable}/{rep.n} "
+        f"reachable ({time.perf_counter() - t0:.1f} s)")
+    rep.raise_if_failed()
+    probes = np.linspace(0, n - 1, ENGINE_PROBES).astype(int)
+    found = [int(ix._eng.search(base[i], k=K, ef=64)[0][0]) == i for i in probes]
+    log(f"device build: the engine's own search finds {sum(found)}/"
+        f"{len(found)} built rows at rank 0")
+    if not all(found):
+        fail("the engine's search misses rows of the imported device build")
+    batches = [queries[i:i + BATCH] for i in range(0, len(queries), BATCH)]
+    res = timed_modes(ix, batches, {"device_built_graph": dict(mode="graph")},
+                      gt_i)["device_built_graph"]
+    if res["recall_at_10"] < GRAPH_RECALL_MIN:
+        fail(f"device-built graph recall@10 {res['recall_at_10']} < "
+             f"{GRAPH_RECALL_MIN}")
+
+    # (b) beam inserts: device_insert against the live graph
+    rng = np.random.default_rng(seed + 5)
+    extra = (centers[rng.integers(0, len(centers), INSERT_N)] + 0.35
+             * rng.standard_normal((INSERT_N, DIM), dtype=np.float32))
+    extra = extra.astype(np.float32)
+    gather_dists.launches = 0
+    t0 = time.perf_counter()
+    with RoundProbe(at=INSERT_N // BATCH // 2 - ROUND_WINDOW) as probe:
+        ix.add(extra, build="device", batch=BATCH, seed=seed,
+               candidates="beam")
+        torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    k1_launches = gather_dists.launches
+    log(f"device insert: {INSERT_N} rows into {n} through the beam in "
+        f"{insert_s:.1f} s over {probe.rounds} rounds, K1 launches "
+        f"{k1_launches}")
+    probe.report("f32 beam insert")
+    if k1_launches <= 0:
+        fail("the beam inserts never launched K1")
+    labels = []
+    for i in range(0, INSERT_N, BATCH):
+        labels.append(ix.search(extra[i:i + BATCH], k=1, mode="graph")[1][:, 0])
+    top1 = float((np.concatenate(labels) == n + np.arange(INSERT_N)).mean())
+    log(f"device insert: self-search top-1 of the {INSERT_N} new rows {top1}")
+    if top1 < INSERT_SELF_MIN:
+        fail(f"inserted rows' self-search top-1 {top1} < {INSERT_SELF_MIN}")
+    rep = ix.validate()
+    log(f"device insert validate: ok {rep.ok}, {rep.n_reachable}/{rep.n} "
+        "reachable")
+    rep.raise_if_failed()
+    return k1_launches
+
+
+def phase_hamming_device_build(rows, queries, gt_i, gt_d, host_build_s, seed):
+    """(c) a hamming index built on the card over phase 9's rows: flat
+    pools through K4's score epilogue. Returns K4's launches in the build."""
+    n = rows.shape[0]
+    gather_dists.launches = pq_decode.launches = hamming_block.launches = 0
+    ix = Index(HnswParams(dim=HAM_DIM, metric=Metric.HAMMING,
+                          quant=QuantKind.B1), capacity=n, seed=seed,
+               device="cuda")
+    t0 = time.perf_counter()
+    with RoundProbe() as probe:
+        ix.add(rows, build="device", batch=BATCH, seed=seed)
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    k4_launches = hamming_block.launches
+    log(f"hamming device build: {n} rows x {HAM_DIM} bits in {build_s:.1f} s "
+        f"over {probe.rounds} rounds, K4 launches {k4_launches}; host build "
+        f"(phase 9, all host cores) {host_build_s:.1f} s")
+    probe.report("hamming flat")
+    if k4_launches <= 0:
+        fail("the hamming device build never launched K4")
+    if gather_dists.launches or pq_decode.launches:
+        fail("the hamming device build launched K1 or the PQ decode kernel")
+    ix.validate().raise_if_failed()
+    kth = gt_d[:, K - 1:K]
+
+    def check(name, dists, ids):
+        exact = host_hamming(rows, queries, ids)
+        if not np.array_equal(dists, exact):
+            fail(f"{name}: returned distances differ from the host's")
+        return dict(recall_at_10_tie_aware=float((exact <= kth).mean()))
+
+    batches = [queries[i:i + BATCH] for i in range(0, len(queries), BATCH)]
+    res = timed_modes(ix, batches, {"hamming_device_built_graph":
+                                    dict(mode="graph")}, gt_i, check)
+    r = res["hamming_device_built_graph"]["recall_at_10_tie_aware"]
+    if r < HAM_GRAPH_RECALL_MIN:
+        fail(f"hamming device-built graph tie-aware recall@10 {r} < "
+             f"{HAM_GRAPH_RECALL_MIN}")
+    return k4_launches
 
 
 def check_one_pass(ev):
@@ -939,15 +1156,23 @@ def main(argv=None):
     torch.cuda.synchronize()
     k4, k4_max_abs = phase_hamming_kernel(args.n, args.seed)
     torch.cuda.synchronize()
-    launches, _, gt_i = phase_main_path(base, queries, base_dev, queries_dev,
-                                        args.seed)
+    launches, host_build_s, gt_i = phase_main_path(
+        base, queries, base_dev, queries_dev, args.seed)
     torch.cuda.synchronize()
     del base_dev
+    k1_build_launches = phase_device_build(base, queries, gt_i, centers,
+                                           host_build_s, args.seed)
+    torch.cuda.synchronize()
     pq_launches = phase_pq_path(base, queries, queries_dev, gt_i, args.seed)
     torch.cuda.synchronize()
     phase_opq(args.seed)
     torch.cuda.synchronize()
-    k4_launches = phase_hamming_path(args.n, args.seed)
+    k4_launches, ham_rows, ham_queries, ham_gt_i, ham_gt_d, ham_build_s = (
+        phase_hamming_path(args.n, args.seed))
+    torch.cuda.synchronize()
+    k4_build_launches = phase_hamming_device_build(
+        ham_rows, ham_queries, ham_gt_i, ham_gt_d, ham_build_s, args.seed)
+    del ham_rows
     torch.cuda.synchronize()
     phase_i8_path(base[:i8_n], queries, queries_dev,
                   gt_i if i8_n == args.n else None, args.seed)
@@ -960,6 +1185,7 @@ def main(argv=None):
         "source": "lantern_tpu_torch/csrc/gather_dists.cu",
         "replaces": "lantern_tpu/ops/pallas_gather.py:85",
         "launches": launches,
+        "build_launches": k1_build_launches,
         "max_abs_err": max_abs,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -988,6 +1214,7 @@ def main(argv=None):
         "replaces": "lantern_tpu/ops/pallas_kernels.py:45 (K4) and :79 "
                     "(hamming_exact_topk)",
         "launches": k4_launches,
+        "build_launches": k4_build_launches,
         "max_abs_err": k4_max_abs,
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],

@@ -7,6 +7,10 @@ reference's module names so each function has a counterpart to read:
 - ``native``            the C++ HNSW host engine, bound with ctypes
 - ``graph.device``      ``DeviceGraph``: the graph arrays as torch tensors
 - ``graph.search``      the batched HNSW beam search (ADC for PQ graphs)
+- ``graph.build_device`` the batched graph builder on the device
+                        (``build_on_device``, ``device_insert``)
+- ``graph.validate``    structural validation of an engine or DeviceGraph
+- ``graph.reorder``     BFS renumbering of a DeviceGraph
 - ``flat``              the dense matmul + top-k scan (i8, hamming), the PQ
                         scan and rerank
 - ``quant.pq``          PQ codebook training, encode/decode, ADC tables

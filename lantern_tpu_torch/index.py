@@ -1,10 +1,12 @@
 """The user-facing Index facade (port of lantern_tpu/index.py).
 
-One HNSW index: the native C++ engine builds the graph on the host, and
-queries run batched on the device against its mirror (``DeviceGraph``).
-Labels are arbitrary u64 external keys. Ported: ``add`` (host build),
-``delete``, ``search`` (auto / flat / graph, allow and deny filters,
-``with_stats``), ``rows_for_labels``, ``size``; every storage kind: f32,
+One HNSW index: the native C++ engine holds the graph, and queries run
+batched on the device against its mirror (``DeviceGraph``). The graph is
+built by the engine on the host, or on the device (``add(build="device")``,
+graph/build_device.py) and imported into the engine. Labels are arbitrary
+u64 external keys. Ported: ``add`` (host or device build), ``delete``,
+``search`` (auto / flat / graph, allow and deny filters, ``with_stats``),
+``rows_for_labels``, ``size``, ``validate``; every storage kind: f32,
 bf16 (``quant=F16``), i8 (``quant=I8``: int8 codes and per-row scales on the
 device), hamming over packed bits (``metric=HAMMING, quant=B1``: uint32 rows
 as given, float rows binarised by sign), and product-quantised indexes
@@ -29,8 +31,10 @@ from lantern_tpu_torch.flat import (
     flat_search_graph_rerank,
     flat_search_pq,
 )
+from lantern_tpu_torch.graph.build_device import build_on_device, device_insert
 from lantern_tpu_torch.graph.device import to_device, with_aug_norms
 from lantern_tpu_torch.graph.search import search_batched
+from lantern_tpu_torch.graph.validate import validate
 from lantern_tpu_torch.native import NativeHnsw
 from lantern_tpu_torch.quant.pq import pq_decode, pq_encode, train_codebook
 from lantern_tpu_torch.quant.scalar import binarize, dequantize_i8, quantize_i8
@@ -50,6 +54,7 @@ class Index:
 
     >>> ix = Index(HnswParams(dim=128))      # on cuda; device="cpu" to test
     >>> ix.add(vectors)                      # host build (native engine)
+    >>> ix.add(more, build="device")         # or insert rounds on the device
     >>> dists, labels = ix.search(queries)   # batched on the device
 
     PQ: ``Index(HnswParams(dim=128, pq=True))`` stores uint8 codes on the
@@ -120,23 +125,51 @@ class Index:
 
     # ---- ingest ----
     def add(self, vectors: np.ndarray, labels: np.ndarray | None = None,
-            build: str = "host", nthreads: int = 0):
-        """Insert rows through the native engine with ``nthreads`` host
-        threads (0 = all cores). Labels default to consecutive row numbers."""
-        if build != "host":
-            raise NotImplementedError(
-                "build='device' waits for the device-builder slice (ROADMAP "
-                "queue 1)")
+            build: str = "host", batch: int = 1024, seed: int = 0,
+            nthreads: int = 0, **kw):
+        """Insert rows. Labels default to consecutive row numbers.
+
+        ``build="host"``: the native engine inserts them with ``nthreads``
+        host threads (0 = all cores). ``build="device"``: an empty index
+        takes ``build_on_device`` (rounds of ``batch`` rows, levels from
+        ``seed``), a non-empty one ``device_insert`` against a device copy
+        of the live graph; either way the result is imported back into the
+        engine. Device builds pass ``candidates`` and ``flat_until`` on to
+        the builder, and ``store`` too for the bulk build.
+        """
+        if build not in ("host", "device"):
+            raise ValueError(f"build={build!r}; expected host|device")
+        opts = ("candidates", "flat_until", "store") if build == "device" else ()
+        unknown = set(kw) - set(opts)
+        if unknown:
+            raise TypeError(f"unexpected arguments for build={build!r}: "
+                            f"{sorted(unknown)}")
         raw = (np.asarray(vectors, np.float32)
                if self.params.pq and self._keep_raw else None)
         vectors = self._preprocess(vectors)
         if labels is None:
             labels = np.arange(self.size, self.size + len(vectors),
                                dtype=np.uint64)
-        need = self._eng.n + len(vectors)
-        if need > self._eng._cap:
-            self._grow(need)
-        self._eng.add(vectors, labels=labels, nthreads=nthreads)
+        labels = np.asarray(labels, np.uint64)
+        if build == "device":
+            if self.size == 0:
+                g = build_on_device(vectors, self.params, batch=batch,
+                                    seed=seed, labels=labels,
+                                    device=self.device, **kw)
+            else:
+                kw.pop("store", None)  # the engine's rows set the storage
+                g = device_insert(
+                    to_device(self._eng, device=self.device), vectors,
+                    labels=labels, batch=batch, seed=seed,
+                    ef_construction=self.params.ef_construction, **kw)
+            if g.num_nodes > self._eng._cap:
+                self._grow(g.num_nodes)
+            self._eng.import_graph(g)
+        else:
+            need = self._eng.n + len(vectors)
+            if need > self._eng._cap:
+                self._grow(need)
+            self._eng.add(vectors, labels=labels, nthreads=nthreads)
         if raw is not None:
             self._rerank_chunks.append(raw)
             self._rerank_rows = None
@@ -313,6 +346,10 @@ class Index:
     @property
     def size(self) -> int:
         return self._eng.n
+
+    def validate(self, full: bool = True):
+        """Structural validation of the engine's graph (graph/validate.py)."""
+        return validate(self._eng, full=full)
 
     # ---- PQ rerank ----
     def _auto_rerank_depth(self, k: int) -> int:

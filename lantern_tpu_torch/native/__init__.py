@@ -4,8 +4,8 @@ The port's own copy of lantern_tpu/native: ``hnsw_engine.cpp`` is the same
 source byte for byte, compiled with g++ at first use into the port's build
 directory (``lantern_tpu_torch/_build/``, see csrc/build.py). Plain C ABI,
 no framework. Hamming indexes store ``ceil(dim/32)`` uint32 words a row, as
-the reference's wrapper does. ``import_graph`` (adopting a device-built
-graph) waits for the device-builder slice and is not bound here.
+the reference's wrapper does. ``import_graph`` adopts a graph built on the
+device (``graph/build_device.py``) as the engine's state.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import os
 
 import numpy as np
 
-from lantern_tpu_torch.config import HnswParams, Metric
+from lantern_tpu_torch.config import HnswParams, Metric, QuantKind
 from lantern_tpu_torch.csrc.build import build_shared
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hnsw_engine.cpp")
@@ -63,6 +63,10 @@ def get_lib() -> ctypes.CDLL:
     lib.ldb_index_error.argtypes = [ctypes.c_void_p]
     lib.ldb_index_grow.restype = ctypes.c_int32
     lib.ldb_index_grow.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.ldb_index_import.restype = ctypes.c_int32
+    lib.ldb_index_import.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+         ctypes.c_int32] + [ctypes.c_void_p] * 9)
     return lib
 
 
@@ -217,6 +221,69 @@ class NativeHnsw:
             out_d.ctypes.data_as(ctypes.c_void_p),
         )
         return out_ids[:cnt].copy(), out_d[:cnt].copy()
+
+    def import_graph(self, graph, labels: np.ndarray | None = None) -> None:
+        """Adopt a DeviceGraph (f32 or bf16 rows, or hamming words) as this
+        engine's state, the reverse of ``to_device``: the first
+        ``graph.num_nodes`` rows, their adjacency, levels, slots, labels
+        (``labels`` if given, else the graph's) and tombstones.
+
+        The C import copies at the engine's row width and ``m``, so a graph
+        of another width or ``m`` is refused here, as are more nodes than
+        the capacity or fewer labels than nodes. Hamming words arrive as
+        int32 tensors carrying the uint32 bits and are reinterpreted, not
+        converted; bf16 rows are widened to f32. int8 codes and PQ codes
+        are refused: the engine stores the rows themselves.
+        """
+        from lantern_tpu_torch.graph.device import QUANT_PQ
+
+        n = int(graph.num_nodes)
+        if n > self._cap:
+            raise ValueError(f"graph has {n} nodes > capacity {self._cap}")
+        g_width = graph.vectors.shape[1]
+        if g_width != self._vec_width:
+            raise ValueError(
+                f"graph vector width {g_width} != engine width "
+                f"{self._vec_width} (dim/quant mismatch)")
+        if int(graph.m) != self.p.m:
+            raise ValueError(f"graph m={int(graph.m)} != engine m={self.p.m}")
+        if graph.quant in (int(QuantKind.I8), QUANT_PQ):
+            raise ValueError("import_graph takes rows (f32, bf16) or hamming "
+                             f"words, not quant={graph.quant} codes")
+        if labels is not None and len(labels) < n:
+            raise ValueError(f"{len(labels)} labels for {n} nodes")
+
+        def host(t, dtype):
+            return np.ascontiguousarray(t.cpu().numpy(), dtype)
+
+        vec = graph.vectors[:n]
+        if self.metric == Metric.HAMMING:
+            vec = host(vec, np.int32).view(np.uint32)
+        else:
+            vec = host(vec.float(), np.float32)
+        nb0 = host(graph.neighbors0[:n], np.int32)
+        slots = host(graph.upper_slot[:n], np.int32)
+        used = slots[slots >= 0]
+        n_upper = int(used.max()) + 1 if used.size else 1
+        up = host(graph.upper_neighbors[:n_upper], np.int32)
+        if labels is None:
+            labels = graph.labels[:n].cpu().numpy().view(np.uint64)
+        args = [
+            vec,
+            nb0,
+            np.ascontiguousarray((nb0 >= 0).sum(1), np.int32),
+            up,
+            np.ascontiguousarray((up >= 0).sum(-1), np.int32),
+            slots,
+            host(graph.levels[:n], np.int32),
+            np.ascontiguousarray(np.asarray(labels)[:n], np.uint64),
+            host(graph.deleted[:n], np.uint8),
+        ]
+        rc = self._lib.ldb_index_import(
+            self._h, n, n_upper, int(graph.entry), int(graph.max_level),
+            *[a.ctypes.data_as(ctypes.c_void_p) for a in args])
+        if rc != 0:
+            raise ValueError(self._lib.ldb_index_error(self._h).decode())
 
     def grow(self, new_cap: int) -> None:
         """Grow capacity in place (doubling semantics of server.rs:243-247).

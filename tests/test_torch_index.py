@@ -114,8 +114,6 @@ def test_rows_for_labels_and_size(pair):
 
 def test_unported_parts_raise():
     ix = lantern_tpu_torch.Index(HnswParams(dim=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="device-builder"):
-        ix.add(np.ones((4, 8), np.float32), build="device")
     for name in ("save", "compact", "search_streaming"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(ix, name)()

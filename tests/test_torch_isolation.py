@@ -20,9 +20,12 @@ PROBE = textwrap.dedent("""
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "lantern_tpu", "flax"))
     assert not bad, bad
-    assert len(mods) >= 18, mods
+    assert len(mods) >= 21, mods
     assert {"lantern_tpu_torch.ops.hamming",
-            "lantern_tpu_torch.quant.scalar"} <= set(mods), mods
+            "lantern_tpu_torch.quant.scalar",
+            "lantern_tpu_torch.graph.build_device",
+            "lantern_tpu_torch.graph.validate",
+            "lantern_tpu_torch.graph.reorder"} <= set(mods), mods
     import torch
     from lantern_tpu_torch import HnswParams, Index
     if not torch.cuda.is_available():
