@@ -60,18 +60,41 @@ Phases, each of which exits non-zero on failure:
 11. the device build (``graph/build_device.py``): (a) ``Index(HnswParams(
    dim=128, m=16, ef_construction=128)).add(base, build="device",
    batch=1024)`` over the f32 phase's n rows with flat candidate pools, its
-   seconds beside phase 5's host build, one full round timed and one
-   profiled (top kernels, launches, device idle share, host and device time
-   of the candidate scan, pair distances, selection loops and reverse
-   passes), recall@10 at ef=64 with 8 seeds against phase 5's truth,
+   seconds beside phase 5's host build, a window of full rounds timed and
+   the next full round profiled after a warm-up round (top kernels,
+   launches, device idle share, host and device time of the candidate scan,
+   pair distances, selection loops and reverse passes; the record must hold
+   the round's candidate-scan kernels, else a later round is profiled, at
+   most 3 times), recall@10 at ef=64 with 8 seeds against phase 5's truth,
    ``Index.validate()`` and the engine's own search; (b) ``add(extra,
    build="device", candidates="beam")`` of INSERT_N new clustered
    rows: ``device_insert`` through the beam, K1's launches, self-search
    top-1 of the new rows, validation; (c), after phase 9, a hamming index
    built with ``build="device"`` over phase 9's rows: K4's launches,
    tie-aware recall@10;
-12. one JSON line of kernel numbers (K1's and K4's ``build_launches`` from
-   (b) and (c)), the ``nvidia-smi`` line, and last the result line
+12. persistence on (a)+(b)'s index (``storage/``, ``Index.save / load /
+   follow / reindex_concurrent / search_streaming``), snapshots in a
+   temporary directory checked for room first: (1) ``save``, then
+   ``Index.load`` into the native and the python engine, whose flat and
+   graph searches equal the original's exactly, and ``validate``; (2) a
+   writer opened with ``log_path=`` adds WAL_N rows on one host thread and
+   deletes WAL_DELETES labels, a follower (``Index.follow``) catches up and
+   the crashed writer is reopened (both replays side by side), and both
+   equal the writer: size, num_deleted, searches; (3)
+   ``reindex_concurrent(build="device")`` while a thread keeps searching in
+   graph mode and the main thread makes add/delete pairs: swapped, no
+   tombstone left or deleted label returned, the pairs' rows found,
+   recall@10 against an exact scan of the live rows, search batches served
+   during the rebuild and their latency, peak device memory; (4)
+   ``search_streaming`` of 16 queries to 1000 distinct live rows, the first
+   64 those of ``search(k=64, mode="graph")``; (5), after phase 11 (c), the
+   hamming index and phase 7's OPQ index saved and loaded with equal
+   searches (K4; the decode kernel, rerank after ``set_rerank_source``),
+   then the OPQ index compacted after deleting a tenth: rerank rows
+   realigned, no deleted label returned;
+13. one JSON line of kernel numbers (K1's and K4's ``build_launches`` from
+   (b) and (c), every kernel's ``persist_launches`` from 12), the
+   ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Needs the ``lantern_tpu_torch`` package beside it and a CUDA device; never
@@ -82,9 +105,14 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -136,8 +164,18 @@ ENGINE_PROBES = 16  # built rows the engine's own search must find at rank 0
 # full-batch rounds of the device build: ROUND_WINDOW of them timed from
 # PROFILED_ROUND on, then the next one profiled
 PROFILED_ROUND, ROUND_WINDOW = 400, 8
+PROFILE_TRIES = 3  # profiled round pairs before an incomplete record fails
 BUILD_SPANS = ("build.candidates", "build.pair_dists", "build.select",
                "build.reverse")
+# the persistence phase: rows the writer adds through the insert log, labels
+# it deletes, the rebuild's concurrent add/delete pairs (rows added, then
+# half of them deleted), the search thread's pause between batches (it
+# shares the interpreter with the rebuild's Python loops), the streaming
+# scan's queries and rows, the share of the OPQ index compacted away
+WAL_N, WAL_DELETES = 65_536, 50_000
+RC_PAIRS, RC_PAIR_ROWS, RC_SEARCH_PAUSE_S = 4, 256, 0.5
+STREAM_QUERIES, STREAM_ROWS = 16, 1000
+OPQ_DELETE_EVERY = 10
 
 
 def fail(msg: str) -> None:
@@ -625,6 +663,7 @@ def phase_opq(seed):
             fail(f"{name} never launched the PQ decode kernel")
     if res["opq_rerank100"]["recall_at_10"] < res["opq_flat"]["recall_at_10"]:
         fail("opq: rerank recall below the ADC scan's")
+    return ix, base, queries
 
 
 def random_words(gen, rows, w):
@@ -838,7 +877,7 @@ def phase_hamming_path(n, seed):
     if r["hamming_graph"] < HAM_GRAPH_RECALL_MIN:
         fail(f"hamming graph tie-aware recall@10 {r['hamming_graph']} < "
              f"{HAM_GRAPH_RECALL_MIN}")
-    return launches, rows, queries, gt_i, gt_d, build_s
+    return launches, rows, queries, gt_i, gt_d, build_s, ix
 
 
 def phase_i8_path(base, queries, queries_dev, gt_i, seed):
@@ -900,16 +939,39 @@ class RoundProbe:
     """Wraps the device builder's round function for one build: counts the
     rounds, times ROUND_WINDOW full-batch rounds from the ``at``-th on
     (host clock, a device sync at either end, so host and device overlap
-    as in the build) and runs the next full round under torch.profiler
-    (CPU and CUDA). Restores the function on exit. ``report`` fails if the
-    build never reached the profiled round."""
+    as in the build), then profiles the next two full rounds in one
+    torch.profiler session (CPU and CUDA), the first as its warm-up, the
+    second recorded. The record must hold the round's candidate-scan
+    kernels: those whose names contain ``scan``, as many as ``counter``
+    (a kernel wrapper) counted launches in the recorded round, and at
+    least ``min_ms`` of device time (the least an SGEMM over the rows can
+    take). An incomplete record is dropped and the next two full rounds
+    profiled, up to PROFILE_TRIES times. Restores the function on exit.
+    ``report`` fails if no record was complete."""
 
-    def __init__(self, at: int = PROFILED_ROUND):
-        self.at, self.rounds, self.full = at, 0, 0
-        self.round_ms = self.events = None
+    def __init__(self, scan: str, counter=None, min_ms: float = 0.0,
+                 at: int = PROFILED_ROUND):
+        self.scan, self.counter, self.min_ms = scan, counter, min_ms
+        self.at, self.rounds, self.full, self.tries = at, 0, 0, 0
+        self.round_ms = self.events = self._prof = None
+        self.incomplete = []  # (kernels recorded, launched, ms) per try
+
+    def _ready(self, prof):
+        events = prof.events()
+        scan = [e for e in events if e.device_type == DeviceType.CUDA
+                and self.scan in e.name]
+        ms = sum(e.self_device_time_total for e in scan) / 1e3
+        launched = (self.counter.launches - self._launches0
+                    if self.counter is not None else None)
+        if scan and ms >= self.min_ms and launched in (None, len(scan)):
+            self.events, self.scan_ms = events, ms
+        else:
+            self.incomplete.append((len(scan), launched, ms))
 
     def __enter__(self):
         self.real = real = build_device._insert_round
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
 
         def wrapped(st, ids, *a, **kw):
             self.rounds += 1
@@ -919,22 +981,37 @@ class RoundProbe:
             if self.full == self.at:
                 torch.cuda.synchronize()
                 self.t0 = time.perf_counter()
-            if self.full != self.at + ROUND_WINDOW:
+            if (self.full < self.at + ROUND_WINDOW or self.events is not None
+                    or self.tries == PROFILE_TRIES):
                 return real(st, ids, *a, **kw)
-            torch.cuda.synchronize()
-            self.round_ms = (time.perf_counter() - self.t0) * 1e3 / ROUND_WINDOW
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                real(st, ids, *a, **kw)
+            if self.round_ms is None:
                 torch.cuda.synchronize()
-            self.events = prof.events()
-            return st
+                self.round_ms = ((time.perf_counter() - self.t0) * 1e3
+                                 / ROUND_WINDOW)
+            warm = self._prof is None
+            if warm:
+                self._prof = torch.profiler.profile(
+                    activities=acts, on_trace_ready=self._ready,
+                    schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                     active=1))
+                self._prof.__enter__()
+            elif self.counter is not None:
+                self._launches0 = self.counter.launches
+            out = real(st, ids, *a, **kw)
+            torch.cuda.synchronize()
+            self._prof.step()  # after the recorded round: _ready runs
+            if not warm:
+                self._prof.__exit__(None, None, None)
+                self._prof = None
+                self.tries += 1
+            return out
 
         build_device._insert_round = wrapped
         return self
 
     def __exit__(self, *exc):
+        if self._prof is not None:  # the build ended after a warm-up round
+            self._prof.__exit__(None, None, None)
         build_device._insert_round = self.real
 
     def report(self, label):
@@ -945,11 +1022,15 @@ class RoundProbe:
         both inclusive (the reverse passes include their own pair distances
         and selection loops)."""
         if self.events is None:
-            fail(f"{label} round profile: not measured (the build had "
-                 f"{self.full} full rounds, fewer than "
-                 f"{self.at + ROUND_WINDOW})")
+            fail(f"{label} round profile: no complete record in {self.tries} "
+                 f"tries (candidate-scan kernels '{self.scan}' recorded, "
+                 f"launched, ms: {self.incomplete}; at least {self.min_ms} ms "
+                 f"needed) over {self.full} full rounds")
         kernels, spans = {}, {}
         for e in self.events:
+            # the session's step annotation spans the round: not a kernel
+            if e.name.startswith("ProfilerStep"):
+                continue
             if e.device_type == DeviceType.CUDA and e.name not in BUILD_SPANS:
                 k = kernels.setdefault(e.name, [0.0, 0])
                 k[0] += e.self_device_time_total / 1e3
@@ -962,7 +1043,11 @@ class RoundProbe:
                 sp["calls"] += 1
         busy_ms = sum(v[0] for v in kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-        row = {"build": label, "profiled_round": self.at + ROUND_WINDOW,
+        row = {"build": label,
+               "profiled_round": self.at + ROUND_WINDOW + 2 * self.tries - 1,
+               "tries": self.tries, "incomplete": self.incomplete,
+               "scan": self.scan, "scan_ms": self.scan_ms,
+               "scan_min_ms": self.min_ms,
                "batch": BATCH, "rounds": self.rounds,
                "round_ms_mean_of_window": self.round_ms,
                "window": ROUND_WINDOW, "device_busy_ms": busy_ms,
@@ -974,15 +1059,21 @@ class RoundProbe:
         return row
 
 
+def sgemm_min_ms(rows: int) -> float:
+    """The least device time of a flat-pool round's candidate scan: the
+    [BATCH, DIM] x [DIM, rows] f32 product at the card's f32 peak."""
+    return 2 * BATCH * rows * DIM / PEAK_F32_FLOPS * 1e3
+
+
 def phase_device_build(base, queries, gt_i, centers, host_build_s, seed):
     """(a) the bulk device build of the f32 rows, (b) beam inserts into it.
-    Returns K1's launches in (b)."""
+    Returns K1's launches in (b) and the index."""
     n = base.shape[0]
     gather_dists.launches = pq_decode.launches = hamming_block.launches = 0
     ix = Index(HnswParams(dim=DIM, m=16, ef_construction=128), capacity=n,
                seed=seed, device="cuda")
     t0 = time.perf_counter()
-    with RoundProbe() as probe:
+    with RoundProbe("gemm", min_ms=sgemm_min_ms(n)) as probe:
         ix.add(base, build="device", batch=BATCH, seed=seed)
         torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -1021,7 +1112,8 @@ def phase_device_build(base, queries, gt_i, centers, host_build_s, seed):
     extra = extra.astype(np.float32)
     gather_dists.launches = 0
     t0 = time.perf_counter()
-    with RoundProbe(at=INSERT_N // BATCH // 2 - ROUND_WINDOW) as probe:
+    with RoundProbe("gather_dists", counter=gather_dists,
+                    at=INSERT_N // BATCH // 2 - ROUND_WINDOW) as probe:
         ix.add(extra, build="device", batch=BATCH, seed=seed,
                candidates="beam")
         torch.cuda.synchronize()
@@ -1044,7 +1136,7 @@ def phase_device_build(base, queries, gt_i, centers, host_build_s, seed):
     log(f"device insert validate: ok {rep.ok}, {rep.n_reachable}/{rep.n} "
         "reachable")
     rep.raise_if_failed()
-    return k1_launches
+    return k1_launches, ix
 
 
 def phase_hamming_device_build(rows, queries, gt_i, gt_d, host_build_s, seed):
@@ -1056,7 +1148,7 @@ def phase_hamming_device_build(rows, queries, gt_i, gt_d, host_build_s, seed):
                           quant=QuantKind.B1), capacity=n, seed=seed,
                device="cuda")
     t0 = time.perf_counter()
-    with RoundProbe() as probe:
+    with RoundProbe("hamming", counter=hamming_block) as probe:
         ix.add(rows, build="device", batch=BATCH, seed=seed)
         torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -1086,6 +1178,325 @@ def phase_hamming_device_build(rows, queries, gt_i, gt_d, host_build_s, seed):
         fail(f"hamming device-built graph tie-aware recall@10 {r} < "
              f"{HAM_GRAPH_RECALL_MIN}")
     return k4_launches
+
+
+def search_all(ix, batches, mode):
+    """(dists, labels) of every batch in one mode, concatenated."""
+    out = [ix.search(b, k=K, mode=mode) for b in batches]
+    return (np.concatenate([d for d, _ in out]),
+            np.concatenate([lab for _, lab in out]))
+
+
+def check_equal(name, got, want):
+    for what, a, b in zip(("distances", "labels"), got, want):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"{name}: {what} differ from the original's "
+                 f"({int((a != b).sum()) if a.shape == b.shape else a.shape})")
+
+
+def snapshot_dir(need_bytes: int):
+    """A temporary directory with room for two snapshots of ``need_bytes``
+    (a save writes the new file beside the old one before the rename)."""
+    tmp = tempfile.TemporaryDirectory(prefix="lantern_smoke_")
+    free = shutil.disk_usage(tmp.name).free
+    if free < 2 * need_bytes + (256 << 20):
+        tmp.cleanup()
+        fail(f"no room for snapshots: {free / 2**20:.0f} MiB free in "
+             f"{tmp.name}, {2 * need_bytes / 2**20:.0f} MiB + 256 MiB needed")
+    return tmp
+
+
+def snapshot_bytes(ix) -> int:
+    """About the bytes of ``ix``'s snapshot: rows, level-0 adjacency, and
+    labels, levels, counts and slots."""
+    return ix.size * (ix._eng.vectors.itemsize * ix._eng.vectors.shape[1]
+                      + 4 * ix.params.m0 + 24)
+
+
+def check_live(name, labels, dead: np.ndarray):
+    hit = np.isin(labels, dead)
+    if hit.any():
+        fail(f"{name}: {int(hit.sum())} deleted labels returned")
+
+
+def phase_persistence(ix, queries, queries_dev, centers, seed):
+    """(1)-(4) on the device-built f32 index: save and load into both
+    engines; the insert log with a follower and a crash; a concurrent
+    device rebuild under searches and writes; the streaming scan. Returns
+    K1's launches (two threads in (3): counted, not held to a number)."""
+    batches = [queries[i:i + BATCH] for i in range(0, len(queries), BATCH)]
+    modes = ("graph", "flat")
+    n = ix.size
+    tmp = snapshot_dir(snapshot_bytes(ix))
+    snap = os.path.join(tmp.name, "f32.ldb")
+    wal = os.path.join(tmp.name, "f32.log")
+    gather_dists.launches = pq_decode.launches = hamming_block.launches = 0
+
+    # (1) save, load into the native and the python engine
+    want = {mode: search_all(ix, batches, mode) for mode in modes}
+    t0 = time.perf_counter()
+    ix.save(snap)
+    save_s = time.perf_counter() - t0
+    snap_mb = os.path.getsize(snap) / 2**20
+    load_s = {}
+    for engine in ("native", "python"):
+        t0 = time.perf_counter()
+        loaded = Index.load(snap, engine=engine, device="cuda")
+        load_s[engine] = time.perf_counter() - t0
+        rep = loaded.validate()
+        if not rep.ok:
+            fail(f"load {engine}: validate: {rep.errors}")
+        for mode in modes:
+            check_equal(f"load {engine} {mode}", search_all(loaded, batches,
+                                                            mode), want[mode])
+        del loaded
+    log("persistence save/load " + json.dumps(dict(
+        rows=n, snapshot_mb=snap_mb, save_s=save_s, load_s=load_s,
+        equal=f"{len(queries)} queries, graph (ef 64) and flat, both "
+              "engines")))
+
+    # (2) the insert log: a writer, a follower, the writer's crash
+    rng = np.random.default_rng(seed + 6)
+    new = (centers[rng.integers(0, len(centers), WAL_N)] + 0.35
+           * rng.standard_normal((WAL_N, DIM), dtype=np.float32))
+    new = new.astype(np.float32)
+    new_labels = np.arange(n, n + WAL_N, dtype=np.uint64)
+    dead = np.sort(rng.choice(n, WAL_DELETES, replace=False)).astype(np.uint64)
+    writer = Index.load(snap, log_path=wal, device="cuda")
+    follower = Index.follow(snap, wal, device="cuda")
+    t0 = time.perf_counter()
+    writer.add(new, labels=new_labels, nthreads=1)  # one thread: replayable
+    add_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    writer.delete(dead)
+    delete_s = time.perf_counter() - t0
+    log_mb = os.path.getsize(wal) / 2**20
+    w_state = (writer.size, writer.num_deleted)
+    if w_state != (n + WAL_N, WAL_DELETES):
+        fail(f"writer holds {w_state}, not {(n + WAL_N, WAL_DELETES)}")
+    w_res = {mode: search_all(writer, batches, mode) for mode in modes}
+    for mode in modes:
+        check_live(f"writer {mode}", w_res[mode][1], dead)
+    del writer  # the writer crashes: no save
+
+    def timed(fn, *a, **kw):
+        t0 = time.perf_counter()
+        return fn(*a, **kw), time.perf_counter() - t0
+
+    # the follower's catch-up and the crashed writer's reopening replay the
+    # same log on one host thread each; run them side by side
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        fut_c = pool.submit(timed, follower.catchup)
+        fut_r = pool.submit(timed, Index.load, snap, log_path=wal,
+                            device="cuda")
+        (applied, catchup_s), (reopened, replay_s) = (fut_c.result(),
+                                                      fut_r.result())
+    if applied != WAL_N + WAL_DELETES:
+        fail(f"follower applied {applied} records, not {WAL_N + WAL_DELETES}")
+    for name, other in (("follower", follower), ("reopened", reopened)):
+        state = (other.size, other.num_deleted)
+        if state != w_state:
+            fail(f"{name} holds {state}, the writer held {w_state}")
+        for mode in modes:
+            check_equal(f"{name} {mode}", search_all(other, batches, mode),
+                        w_res[mode])
+    del follower
+    log("persistence wal " + json.dumps(dict(
+        added=WAL_N, deleted=WAL_DELETES, log_mb=log_mb,
+        writer_add_s=add_s, writer_delete_s=delete_s,
+        follower_catchup_s=catchup_s, reopen_replay_s=replay_s,
+        replay="one host thread each, side by side",
+        equal="follower and reopened: size, num_deleted, graph and flat "
+              "searches")))
+
+    # (3) reindex_concurrent(build="device") under a search thread and writes
+    ix2 = reopened
+    ix2.search(batches[0], k=K, mode="graph")  # warm
+    before = []
+    for b in batches:
+        t0 = time.perf_counter()
+        ix2.search(b, k=K, mode="graph")
+        before.append((time.perf_counter() - t0) * 1e3)
+    pair_labels = np.arange(2 * n, 2 * n + RC_PAIRS * RC_PAIR_ROWS,
+                            dtype=np.uint64)
+    pair_rows = (centers[rng.integers(0, len(centers), len(pair_labels))]
+                 + 0.35 * rng.standard_normal((len(pair_labels), DIM),
+                                              dtype=np.float32))
+    pair_rows = pair_rows.astype(np.float32)
+    pair_dead = pair_labels.reshape(RC_PAIRS, RC_PAIR_ROWS)[:, :RC_PAIR_ROWS
+                                                            // 2].ravel()
+    all_dead = np.concatenate([dead, pair_dead])
+    stop, errors, served = threading.Event(), [], []
+
+    def searcher():
+        try:
+            i = 0
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                _, lab = ix2.search(batches[i % len(batches)], k=K,
+                                    mode="graph")
+                t1 = time.perf_counter()
+                served.append((t1, (t1 - t0) * 1e3))
+                if np.isin(lab, all_dead).any():
+                    errors.append(f"batch {i}: a deleted label returned")
+                i += 1
+                stop.wait(RC_SEARCH_PAUSE_S)
+        except Exception as e:  # reported by the main thread
+            errors.append(repr(e))
+
+    torch.cuda.reset_peak_memory_stats()
+    thread = threading.Thread(target=searcher, name="smoke-search")
+    thread.start()
+    t_start = time.perf_counter()
+    try:
+        handle = ix2.reindex_concurrent(build="device", batch=BATCH, seed=seed)
+        writes_s = []
+        for p in range(RC_PAIRS):
+            t0 = time.perf_counter()
+            lo, hi = p * RC_PAIR_ROWS, (p + 1) * RC_PAIR_ROWS
+            ix2.add(pair_rows[lo:hi], labels=pair_labels[lo:hi])
+            ix2.delete(pair_labels[lo:lo + RC_PAIR_ROWS // 2])
+            writes_s.append(time.perf_counter() - t0)
+        writes_done = handle.done
+        swapped = handle.join()
+        t_done = time.perf_counter()
+    finally:
+        stop.set()
+        thread.join(timeout=120)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if thread.is_alive():
+        fail("the search thread did not stop")
+    if errors:
+        fail(f"search thread during the rebuild: {errors[:3]}")
+    during = [ms for t, ms in served if t_start < t <= t_done]
+    if not swapped:
+        fail("reindex_concurrent did not swap")
+    if not during:
+        fail("no search batch completed during the rebuild")
+    if writes_done:
+        fail("the rebuild ended before the writes it should replay")
+    want_size = n + WAL_N - WAL_DELETES + RC_PAIRS * RC_PAIR_ROWS // 2
+    if (ix2.size, ix2.num_deleted) != (want_size, 0):
+        fail(f"after the swap: size {ix2.size}, num_deleted "
+             f"{ix2.num_deleted}; want {want_size}, 0")
+    kept = pair_labels.reshape(RC_PAIRS, RC_PAIR_ROWS)[:, RC_PAIR_ROWS // 2:]
+    kept_rows = pair_rows.reshape(RC_PAIRS, RC_PAIR_ROWS, DIM)[
+        :, RC_PAIR_ROWS // 2:].reshape(-1, DIM)
+    _, lab = ix2.search(kept_rows, k=1, mode="flat")
+    if not np.array_equal(lab[:, 0], kept.ravel()):
+        fail("rows added during the rebuild are not found after the swap")
+    eng_rows = torch.from_numpy(np.array(ix2._eng.vectors[:ix2.size])).cuda()
+    eng_labels = np.array(ix2._eng.labels[:ix2.size])
+    _, truth = exact_search(queries_dev, eng_rows, K)
+    truth = eng_labels[truth.cpu().numpy()]
+    del eng_rows
+    d, lab = search_all(ix2, batches, "graph")
+    check_live("after the swap", lab, all_dead)
+    rc_recall = recall(lab, truth)
+    if rc_recall < GRAPH_RECALL_MIN:
+        fail(f"recall@10 after reindex_concurrent {rc_recall} < "
+             f"{GRAPH_RECALL_MIN}")
+    log("persistence reindex_concurrent " + json.dumps(dict(
+        rows_rebuilt=n + WAL_N - WAL_DELETES, rebuild_s=t_done - t_start,
+        writes_s=writes_s, batches_during=len(during),
+        search_pause_s=RC_SEARCH_PAUSE_S,
+        latency_ms_before_median=float(np.median(before)),
+        latency_ms_during_median=float(np.median(during)),
+        latency_ms_during_max=float(np.max(during)),
+        peak_gib=peak_gb, size=ix2.size, num_deleted=ix2.num_deleted,
+        recall_at_10=rc_recall,
+        stream="the rebuild's own CUDA stream")))
+
+    # (4) the streaming scan to 1000 rows
+    t0 = time.perf_counter()
+    for i, q in enumerate(queries[:STREAM_QUERIES]):
+        rows = list(itertools.islice(ix2.search_streaming(q), STREAM_ROWS))
+        labs = np.array([lab for _, lab in rows], np.uint64)
+        if len(rows) != STREAM_ROWS or len(np.unique(labs)) != len(labs):
+            fail(f"streaming query {i}: {len(rows)} rows, "
+                 f"{len(np.unique(labs))} distinct; want {STREAM_ROWS}")
+        check_live(f"streaming query {i}", labs, all_dead)
+        _, lab64 = ix2.search(q, k=64, mode="graph")
+        if not np.array_equal(labs[:64], lab64[0]):
+            fail(f"streaming query {i}: the first 64 rows are not "
+                 "search(k=64, mode='graph')'s")
+    stream_s = (time.perf_counter() - t0) / STREAM_QUERIES
+    log("persistence streaming " + json.dumps(dict(
+        queries=STREAM_QUERIES, rows=STREAM_ROWS, s_per_query=stream_s,
+        tiers=list(Index.STREAM_TIERS))))
+    launches = gather_dists.launches
+    if launches <= 0:
+        fail("the persistence phase never launched K1")
+    tmp.cleanup()
+    return launches
+
+
+def phase_persistence_roundtrips(ham_ix, ham_queries, opq):
+    """(5) save and load the hamming and OPQ indexes (searches equal: K4,
+    the decode kernel), then compact the OPQ index. Returns K4's and the
+    decode kernel's launches."""
+    gather_dists.launches = pq_decode.launches = hamming_block.launches = 0
+    opq_ix, opq_base, opq_queries = opq
+    batches = [ham_queries[i:i + BATCH]
+               for i in range(0, len(ham_queries), BATCH)]
+    tmp = snapshot_dir(max(snapshot_bytes(ham_ix), snapshot_bytes(opq_ix)))
+    path = os.path.join(tmp.name, "ix.ldb")
+    t0 = time.perf_counter()
+    ham_ix.save(path)
+    save_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 2**20
+    t0 = time.perf_counter()
+    loaded = Index.load(path, device="cuda")
+    load_s = time.perf_counter() - t0
+    for mode in ("flat", "graph"):
+        check_equal(f"hamming load {mode}", search_all(loaded, batches, mode),
+                    search_all(ham_ix, batches, mode))
+    del loaded
+    os.remove(path)
+    k4 = hamming_block.launches
+    if k4 <= 0:
+        fail("the hamming round trip never launched K4")
+    log("persistence hamming " + json.dumps(dict(
+        rows=ham_ix.size, snapshot_mb=mb, save_s=save_s, load_s=load_s,
+        k4_launches=k4)))
+
+    opq_ix.save(path)
+    loaded = Index.load(path, device="cuda")
+    cb, cb2 = opq_ix._codebook, loaded._codebook
+    if not (np.array_equal(cb.centroids, cb2.centroids)
+            and np.array_equal(cb.rotation, cb2.rotation)):
+        fail("opq load: the codebook or its rotation did not persist")
+    loaded.set_rerank_source(opq_base)
+    for kw in (dict(mode="flat"), dict(mode="graph"), dict(rerank=100)):
+        got, want = (loaded.search(opq_queries, k=K, **kw),
+                     opq_ix.search(opq_queries, k=K, **kw))
+        check_equal(f"opq load {kw}", got, want)
+    del loaded
+    tmp.cleanup()
+    # compact away a tenth: the rerank rows follow the new slots
+    dead = np.arange(0, len(opq_base), OPQ_DELETE_EVERY, dtype=np.uint64)
+    opq_ix.delete(dead)
+    t0 = time.perf_counter()
+    opq_ix.compact(build="host")
+    compact_s = time.perf_counter() - t0
+    live = np.array(opq_ix._eng.labels[:opq_ix.size]).astype(np.int64)
+    if (opq_ix.num_deleted != 0 or len(live) != len(opq_base) - len(dead)
+            or not np.array_equal(opq_ix._raw_rows, opq_base[live])):
+        fail("opq compact: tombstones kept or rerank rows not realigned")
+    d, lab = opq_ix.search(opq_queries, k=K, rerank=100)
+    check_live("opq compact rerank", lab, dead)
+    rows = torch.from_numpy(opq_base[lab.astype(np.int64)]).cuda()
+    exact = ((rows.to(torch.bfloat16).float()
+              - torch.from_numpy(opq_queries).cuda()[:, None, :]) ** 2).sum(-1)
+    if not np.allclose(d, exact.cpu().numpy(), rtol=1e-4, atol=1e-2):
+        fail("opq compact: reranked distances are not the rows' distances")
+    decode = pq_decode.launches
+    if decode <= 0:
+        fail("the opq round trip never launched the decode kernel")
+    log("persistence opq " + json.dumps(dict(
+        rows=len(opq_base), compacted_to=opq_ix.size, compact_s=compact_s,
+        decode_launches=decode)))
+    return k4, decode
 
 
 def check_one_pass(ev):
@@ -1160,19 +1571,27 @@ def main(argv=None):
         base, queries, base_dev, queries_dev, args.seed)
     torch.cuda.synchronize()
     del base_dev
-    k1_build_launches = phase_device_build(base, queries, gt_i, centers,
-                                           host_build_s, args.seed)
+    k1_build_launches, dev_ix = phase_device_build(
+        base, queries, gt_i, centers, host_build_s, args.seed)
+    torch.cuda.synchronize()
+    k1_persist = phase_persistence(dev_ix, queries, queries_dev, centers,
+                                   args.seed)
+    del dev_ix
     torch.cuda.synchronize()
     pq_launches = phase_pq_path(base, queries, queries_dev, gt_i, args.seed)
     torch.cuda.synchronize()
-    phase_opq(args.seed)
+    opq = phase_opq(args.seed)
     torch.cuda.synchronize()
-    k4_launches, ham_rows, ham_queries, ham_gt_i, ham_gt_d, ham_build_s = (
-        phase_hamming_path(args.n, args.seed))
+    (k4_launches, ham_rows, ham_queries, ham_gt_i, ham_gt_d, ham_build_s,
+     ham_ix) = phase_hamming_path(args.n, args.seed)
     torch.cuda.synchronize()
     k4_build_launches = phase_hamming_device_build(
         ham_rows, ham_queries, ham_gt_i, ham_gt_d, ham_build_s, args.seed)
     del ham_rows
+    torch.cuda.synchronize()
+    k4_persist, pq_persist = phase_persistence_roundtrips(
+        ham_ix, ham_queries, opq)
+    del ham_ix, opq
     torch.cuda.synchronize()
     phase_i8_path(base[:i8_n], queries, queries_dev,
                   gt_i if i8_n == args.n else None, args.seed)
@@ -1186,6 +1605,7 @@ def main(argv=None):
         "replaces": "lantern_tpu/ops/pallas_gather.py:85",
         "launches": launches,
         "build_launches": k1_build_launches,
+        "persist_launches": k1_persist,
         "max_abs_err": max_abs,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -1201,6 +1621,7 @@ def main(argv=None):
                     "benchmarks/exp_hilo_v2.py:110 (K5), "
                     "benchmarks/exp_hilo_v3.py:135 (K6)",
         "launches": pq_launches,
+        "persist_launches": pq_persist,
         "max_abs_err": pq_max_abs,
         "ms": pq["ms"],
         "plain_ms": pq["plain_ms"],
@@ -1215,6 +1636,7 @@ def main(argv=None):
                     "(hamming_exact_topk)",
         "launches": k4_launches,
         "build_launches": k4_build_launches,
+        "persist_launches": k4_persist,
         "max_abs_err": k4_max_abs,
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],

@@ -9,6 +9,8 @@ reference's module names so each function has a counterpart to read:
 - ``graph.search``      the batched HNSW beam search (ADC for PQ graphs)
 - ``graph.build_device`` the batched graph builder on the device
                         (``build_on_device``, ``device_insert``)
+- ``graph.host_build``  ``HostHnsw``, the numpy host engine
+                        (``Index(engine="python")``)
 - ``graph.validate``    structural validation of an engine or DeviceGraph
 - ``graph.reorder``     BFS renumbering of a DeviceGraph
 - ``flat``              the dense matmul + top-k scan (i8, hamming), the PQ
@@ -20,7 +22,11 @@ reference's module names so each function has a counterpart to read:
 - ``ops.pq_decode``     the PQ decode kernel (CUDA, csrc/)
 - ``ops.hamming``       the all-pairs hamming kernel and its exact top-k
                         (CUDA, csrc/)
-- ``costmodel``         flat-vs-graph dispatch
+- ``costmodel``         flat-vs-graph dispatch and the analytic search cost
+- ``storage.snapshot``  snapshot files and the insert log (``InsertLog``),
+                        the JAX package's format
+- ``storage.replica``   ``IndexFollower``, a log-following read replica
+- ``utils.failpoints``  failure-point fault injection
 - ``index``             the ``Index`` facade
 
 It imports torch and numpy only, never jax or lantern_tpu. Entry points run
@@ -58,4 +64,22 @@ from lantern_tpu_torch.config import (  # noqa: E402,F401
     QuantKind,
     SearchParams,
 )
+from lantern_tpu_torch.graph.host_build import HostHnsw  # noqa: E402,F401
 from lantern_tpu_torch.index import Index  # noqa: E402,F401
+from lantern_tpu_torch.storage import (  # noqa: E402,F401
+    HEADER_MAGIC,
+    HEADER_VERSION,
+    IndexFollower,
+    InsertLog,
+    load_snapshot,
+    read_log_header,
+    read_snapshot_header,
+    save_snapshot,
+    scan_log_tail,
+)
+from lantern_tpu_torch.utils import (  # noqa: E402,F401
+    FailurePointError,
+    failure_point,
+    failure_point_disable_all,
+    failure_point_enable,
+)

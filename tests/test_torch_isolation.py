@@ -1,6 +1,7 @@
 """The port stands alone: importing every lantern_tpu_torch module and
-chip_smoke pulls in neither jax nor lantern_tpu, and an entry point given no
-device on a machine without CUDA raises instead of running on the CPU."""
+chip_smoke pulls in neither jax, ml_dtypes nor lantern_tpu, and an entry
+point given no device on a machine without CUDA raises instead of running
+on the CPU."""
 
 import pathlib
 import subprocess
@@ -18,14 +19,19 @@ PROBE = textwrap.dedent("""
         importlib.import_module(name)
     import chip_smoke  # main() runs only under __main__
     bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "lantern_tpu", "flax"))
+                 if m.split(".")[0] in ("jax", "jaxlib", "lantern_tpu", "flax",
+                                        "ml_dtypes"))
     assert not bad, bad
-    assert len(mods) >= 21, mods
+    assert len(mods) >= 27, mods
     assert {"lantern_tpu_torch.ops.hamming",
             "lantern_tpu_torch.quant.scalar",
             "lantern_tpu_torch.graph.build_device",
             "lantern_tpu_torch.graph.validate",
-            "lantern_tpu_torch.graph.reorder"} <= set(mods), mods
+            "lantern_tpu_torch.graph.reorder",
+            "lantern_tpu_torch.graph.host_build",
+            "lantern_tpu_torch.storage.snapshot",
+            "lantern_tpu_torch.storage.replica",
+            "lantern_tpu_torch.utils.failpoints"} <= set(mods), mods
     import torch
     from lantern_tpu_torch import HnswParams, Index
     if not torch.cuda.is_available():
