@@ -53,14 +53,19 @@ Phases, each of which exits non-zero on failure:
    beside K4 (no negate or mask kernel); one batch given as float +-1 rows
    returns the same labels;
 10. the i8 main path: ``Index(HnswParams(dim=128, quant=I8))`` over the f32
-   phase's rows (``--i8-n`` of them), flat and graph, recall@10 against the
+   phase's first I8_N rows (``--i8-n``), flat and graph, recall@10 against the
    f32 truth and (flat) against an exact scan of the dequantised rows; no
    kernel launches (K1 and the decode kernel are bypassed, as in the
    reference);
-11. the device build (``graph/build_device.py``): (a) ``Index(HnswParams(
-   dim=128, m=16, ef_construction=128)).add(base, build="device",
-   batch=1024)`` over the f32 phase's n rows with flat candidate pools, its
-   seconds beside phase 5's host build, a window of full rounds timed and
+11. the device build (``graph/build_device.py``): (a) the f32 phase's n
+   rows streamed (labels 0..n-1) by ``build_via_server`` to an in-process
+   ``IndexServer(build="device")``, which builds them with
+   ``build_on_device`` (m=16, ef_construction=128, batch=1024, flat
+   candidate pools) in its executor thread and sends its snapshot back,
+   loaded onto the card: the client's stream, build-wait and receive
+   seconds, tuples/s, the snapshot's bytes, the status endpoint's
+   ``Succeeded``, the build's seconds beside phase 5's host build; the
+   reply kept for phase 13; a window of full rounds timed and
    the next full round profiled after a warm-up round (top kernels,
    launches, device idle share, host and device time of the candidate scan,
    pair distances, selection loops and reverse passes; the record must hold
@@ -83,19 +88,45 @@ Phases, each of which exits non-zero on failure:
    equal the writer: size, num_deleted, searches; (3)
    ``reindex_concurrent(build="device")`` while a thread keeps searching in
    graph mode and the main thread makes add/delete pairs: swapped, no
-   tombstone left or deleted label returned, the pairs' rows found,
-   recall@10 against an exact scan of the live rows, search batches served
-   during the rebuild and their latency, peak device memory; (4)
-   ``search_streaming`` of 16 queries to 1000 distinct live rows, the first
-   64 those of ``search(k=64, mode="graph")``; (5), after phase 11 (c), the
+   tombstone left, no label returned by a search that began after its
+   delete() returned, the pairs' rows found, recall@10 against an exact
+   scan of the live rows, search batches served during the rebuild and
+   their latency, peak device memory; (4) ``search_streaming`` of
+   STREAM_QUERIES queries to 1000 distinct live rows, the first 64 those
+   of ``search(k=64, mode="graph")``; (5), after phase 11 (c), the
    hamming index and phase 7's OPQ index saved and loaded with equal
    searches (K4; the decode kernel, rerank after ``set_rerank_source``),
    then the OPQ index compacted after deleting a tenth: rerank rows
    realigned, no deleted label returned;
-13. one JSON line of kernel numbers (K1's and K4's ``build_launches`` from
-   (b) and (c), every kernel's ``persist_launches`` from 12), the
-   ``nvidia-smi`` line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+13. the services (``service/``, ``weighted``, ``autotune``, ``cli``) on the
+   server's snapshot from 11 (a): (b) ``HttpApi(data_dir=...)`` serving
+   it as a collection; HTTP_REQUESTS single-vector ``POST .../search``
+   requests (k=10) from HTTP_THREADS client threads, each equal to
+   ``Index.search`` of the same query on a directly loaded copy (ties
+   aside), recall@10 against phase 5's truth, request latency (median,
+   p99), requests/s, the direct single-query latency, the cost model's
+   mode; (c) a collection of HTTP_N of the rows built over HTTP (rows in
+   requests of HTTP_BATCH, ``/index {"external": true}``, ``/pq`` with 32
+   subspaces, searches with ``rerank`` 100 and ``"auto"``, the decode
+   kernel's launches, a tenth deleted and ``/compact``, no deleted id
+   returned), recall against exact scans of its rows; a hamming
+   collection of HTTP_HAM_N 1024-bit rows sent as +-1 floats, distances
+   equal to the host's, K4's launches; (d) ``weighted_search`` of two
+   query columns (0.7 / 0.3) over the copy, held to an exact float64
+   re-rank of its candidate pools; (e) an ``autotune`` job (10,000 sampled
+   rows, the six variants, 10 queries) through ``Daemon(JobQueue(...))``,
+   completed with a best variant at 0.9, then reused from its stored
+   result with no sweep; ``cli.main(["search", ..., "--mode", "graph"])``
+   over the snapshot and phase 5's queries, recall@10 and K1's launches;
+   ``cli.main(["pq-table", ..., "--chunk-rows", ...])`` over the rows as
+   .npy: codes equal to ``pq_encode``'s, MSE within PQ_MSE_RATIO of
+   in-RAM training, a run stopped after PQ_STOP_PASSES passes and resumed
+   bit-identical to it; any non-200 response, error frame or failed job
+   fails the run;
+14. one JSON line of kernel numbers (K1's and K4's ``build_launches`` from
+   (b) and (c), every kernel's ``persist_launches`` from 12 and
+   ``service_launches`` from 13), the ``nvidia-smi`` line, and last the
+   result line ``{"ok": true, "device": {...}}``.
 
 Needs the ``lantern_tpu_torch`` package beside it and a CUDA device; never
 imports jax or lantern_tpu.
@@ -104,7 +135,10 @@ imports jax or lantern_tpu.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import concurrent.futures
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -114,6 +148,8 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -134,6 +170,19 @@ from lantern_tpu_torch.ops.hamming import (
 )
 from lantern_tpu_torch.ops.pq_decode import codebook_bf16, pq_decode, pq_decode_ref
 from lantern_tpu_torch.graph import build_device
+from lantern_tpu_torch import cli
+from lantern_tpu_torch.autotune import AutotuneResult, autotune, save_results
+from lantern_tpu_torch.quant.pq import (
+    PQCodebook,
+    pq_encode,
+    train_codebook,
+    train_codebook_chunked,
+)
+from lantern_tpu_torch.service.client import ExternalIndexClient, build_via_server
+from lantern_tpu_torch.service.daemon import Daemon, JobQueue
+from lantern_tpu_torch.service.http_api import HttpApi
+from lantern_tpu_torch.service.index_server import IndexServer, ServerStatus
+from lantern_tpu_torch.weighted import weighted_search
 
 DIM, K, BATCH, N_BATCHES = 128, 10, 1024, 4
 RTOL, ATOL = 1e-5, 1e-4
@@ -172,10 +221,31 @@ BUILD_SPANS = ("build.candidates", "build.pair_dists", "build.select",
 # half of them deleted), the search thread's pause between batches (it
 # shares the interpreter with the rebuild's Python loops), the streaming
 # scan's queries and rows, the share of the OPQ index compacted away
-WAL_N, WAL_DELETES = 65_536, 50_000
+WAL_N, WAL_DELETES = 16_384, 50_000
 RC_PAIRS, RC_PAIR_ROWS, RC_SEARCH_PAUSE_S = 4, 256, 0.5
-STREAM_QUERIES, STREAM_ROWS = 16, 1000
+STREAM_QUERIES, STREAM_ROWS = 8, 1000
+# the i8 path's default rows. Cuts that keep the whole run under 1200 s
+# once the service phase (~200 s) joined it: the i8 path from 1M rows
+# (its host build took 73.5 s), WAL_N from 65,536 (a one-thread insert of
+# ~0.6 ms a row, twice: the writer, then the replays), STREAM_QUERIES
+# from 16 (2.5 s each)
+I8_N = 100_000
 OPQ_DELETE_EVERY = 10
+# the service phase: the collection the HTTP API serves from the indexing
+# server's snapshot, its single-vector requests and client threads; the
+# collection built over HTTP (cut to HTTP_N rows: JSON carries a 128-d row
+# as ~1.3 KB of text) in requests of HTTP_BATCH rows, its queries, the
+# share deleted; the hamming collection's rows; the weighted queries; the
+# PQ table's chunk rows, the passes of its stopped run, its MSE bound
+# against in-RAM training (tests/test_quant.py:321); a 90% recall target
+HTTP_COLLECTION = "smoke"
+HTTP_REQUESTS, HTTP_THREADS = 1024, 4
+HTTP_RECALL_MIN = 0.999
+HTTP_N, HTTP_BATCH, HTTP_QUERIES, HTTP_DELETE_SHARE = 100_000, 1000, 64, 0.1
+HTTP_HAM_N, HTTP_HAM_QUERIES = 10_000, 32
+WEIGHTED_QUERIES, WEIGHTS = 64, (0.7, 0.3)
+PQ_CHUNK_ROWS, PQ_STOP_PASSES, PQ_TABLE_ITERS, PQ_MSE_RATIO = 65536, 3, 8, 1.15
+AUTOTUNE_TARGET = 0.9
 
 
 def fail(msg: str) -> None:
@@ -1065,28 +1135,85 @@ def sgemm_min_ms(rows: int) -> float:
     return 2 * BATCH * rows * DIM / PEAK_F32_FLOPS * 1e3
 
 
-def phase_device_build(base, queries, gt_i, centers, host_build_s, seed):
-    """(a) the bulk device build of the f32 rows, (b) beam inserts into it.
-    Returns K1's launches in (b) and the index."""
+class ServerThread:
+    """An asyncio event loop on a thread of its own, serving ``servers``
+    (the indexing server's executor runs its builds on further threads)."""
+
+    def __init__(self, *servers):
+        self.servers = servers
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="smoke-index-server")
+        self.started = threading.Event()
+
+    def _run(self):
+        asyncio.set_event_loop(self.loop)
+        for srv in self.servers:
+            self.loop.run_until_complete(srv.start())
+        self.started.set()
+        self.loop.run_forever()
+
+    def __enter__(self):
+        self.thread.start()
+        if not self.started.wait(60):
+            fail("the indexing server did not start")
+        return self
+
+    def __exit__(self, *exc):
+        for srv in self.servers:
+            asyncio.run_coroutine_threadsafe(srv.stop(), self.loop).result(30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        self.loop.close()
+
+
+def phase_device_build(base, queries, gt_i, centers, host_build_s, seed,
+                       snapshot):
+    """(a) the bulk device build of the f32 rows through the indexing
+    server, the reply's snapshot kept at ``snapshot``; (b) beam inserts
+    into the loaded index. Returns K1's launches in (b) and the index."""
     n = base.shape[0]
     gather_dists.launches = pq_decode.launches = hamming_block.launches = 0
-    ix = Index(HnswParams(dim=DIM, m=16, ef_construction=128), capacity=n,
-               seed=seed, device="cuda")
-    t0 = time.perf_counter()
-    with RoundProbe("gemm", min_ms=sgemm_min_ms(n)) as probe:
-        ix.add(base, build="device", batch=BATCH, seed=seed)
-        torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    params = HnswParams(dim=DIM, m=16, ef_construction=128)
+    srv = IndexServer(port=0, status_port=0, build="device", device="cuda")
+    with ServerThread(srv):
+        client = ExternalIndexClient("127.0.0.1", srv.port, reply_timeout=900)
+        t0 = time.perf_counter()
+        # the server builds in its executor thread; the probe wraps the
+        # builder's round function there
+        with RoundProbe("gemm", min_ms=sgemm_min_ms(n)) as probe:
+            ix = build_via_server(base, params, "127.0.0.1", srv.port,
+                                  labels=np.arange(n, dtype=np.uint64),
+                                  device="cuda", client=client)
+            torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.status_port}/status", timeout=30) as r:
+            status = json.loads(r.read())["status"]
+    t = client.last_timings
+    wire_s = t["stream_s"] + t["build_wait_s"] + t["index_recv_s"]
+    log("service build " + json.dumps(dict(
+        rows=n, status=status, **t, snapshot_mib=t["index_bytes"] / 2**20,
+        write_and_load_s=total_s - wire_s, total_s=total_s)))
+    if status != ServerStatus.SUCCEEDED:
+        fail(f"the indexing server's status after the build is {status}")
+    if ix.size != n or ix.device.type != "cuda":
+        fail(f"build_via_server returned {ix!r}")
+    build_s = t["build_wait_s"]
     log(f"device build: {n} rows x {DIM} (m=16, ef_construction=128, batch "
-        f"{BATCH}, flat pools) in {build_s:.1f} s over {probe.rounds} rounds "
-        f"({build_s / probe.rounds * 1e3:.1f} ms a round, import into the "
-        f"engine included); host build (phase 5, all host cores) "
-        f"{host_build_s:.1f} s")
+        f"{BATCH}, flat pools, in the indexing server) in {build_s:.1f} s "
+        f"over {probe.rounds} rounds ({build_s / probe.rounds * 1e3:.1f} ms a "
+        f"round, the import and the server's snapshot included); host build "
+        f"(phase 5, all host cores) {host_build_s:.1f} s")
     probe.report("f32 flat")
     launched = (gather_dists.launches, pq_decode.launches, hamming_block.launches)
     log(f"device build launches (K1, decode, K4): {launched}")
     if any(launched):
         fail(f"the flat f32 device build launched kernels {launched}")
+    ix.save(snapshot)  # the reply's bytes (tests/test_torch_service.py)
+    if os.path.getsize(snapshot) != t["index_bytes"]:
+        fail(f"the saved snapshot holds {os.path.getsize(snapshot)} bytes, "
+             f"the reply {t['index_bytes']}")
     t0 = time.perf_counter()
     rep = ix.validate()
     log(f"device build validate: ok {rep.ok}, {rep.n_reachable}/{rep.n} "
@@ -1327,18 +1454,23 @@ def phase_persistence(ix, queries, queries_dev, centers, seed):
                                                             // 2].ravel()
     all_dead = np.concatenate([dead, pair_dead])
     stop, errors, served = threading.Event(), [], []
+    # labels whose delete() had returned; a search may return a pair's row
+    # that is deleted while it runs, but none deleted before it began
+    gone = [dead]
 
     def searcher():
         try:
             i = 0
             while not stop.is_set():
+                gone_before = np.concatenate(list(gone))
                 t0 = time.perf_counter()
                 _, lab = ix2.search(batches[i % len(batches)], k=K,
                                     mode="graph")
                 t1 = time.perf_counter()
                 served.append((t1, (t1 - t0) * 1e3))
-                if np.isin(lab, all_dead).any():
-                    errors.append(f"batch {i}: a deleted label returned")
+                if np.isin(lab, gone_before).any():
+                    errors.append(f"batch {i}: a label deleted before the "
+                                  "search began was returned")
                 i += 1
                 stop.wait(RC_SEARCH_PAUSE_S)
         except Exception as e:  # reported by the main thread
@@ -1356,6 +1488,7 @@ def phase_persistence(ix, queries, queries_dev, centers, seed):
             lo, hi = p * RC_PAIR_ROWS, (p + 1) * RC_PAIR_ROWS
             ix2.add(pair_rows[lo:hi], labels=pair_labels[lo:hi])
             ix2.delete(pair_labels[lo:lo + RC_PAIR_ROWS // 2])
+            gone.append(pair_labels[lo:lo + RC_PAIR_ROWS // 2])
             writes_s.append(time.perf_counter() - t0)
         writes_done = handle.done
         swapped = handle.join()
@@ -1499,6 +1632,349 @@ def phase_persistence_roundtrips(ham_ix, ham_queries, opq):
     return k4, decode
 
 
+def http(method: str, url: str, body=None, timeout: float = 900.0):
+    """One JSON request; any status but 200/201 fails the run with the
+    server's own error message."""
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method)
+    req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        fail(f"{method} {url}: HTTP {e.code} {e.read().decode()[:2000]}")
+
+
+def result_ids(res) -> np.ndarray:
+    return np.array([r["id"] for r in res["results"]], np.int64)
+
+
+def tie_aware_equal(got, want, want_d) -> bool:
+    """Label lists equal where their distances do not tie (with a row past
+    the k-th, too)."""
+    if len(got) != len(want):
+        return False
+    for i, (a, b) in enumerate(zip(got, want)):
+        near = np.isclose(want_d, want_d[i], rtol=1e-6)
+        if a != b and near.sum() == 1 and not near[-1]:
+            return False
+    return True
+
+
+def phase_http_1m(url, snapshot, queries, gt_i):
+    """(b) the HTTP API serving the indexing server's 1M index: single-
+    vector requests from HTTP_THREADS threads against the same searches
+    made directly on a loaded copy. Returns the copy."""
+    direct = Index.load(snapshot, device="cuda")
+    mode = direct.search(queries[:1], k=K, with_stats=True)[2]["mode"]
+    qs = queries[:HTTP_REQUESTS]
+
+    def one(i):
+        t0 = time.perf_counter()
+        res = http("POST", f"{url}/collections/{HTTP_COLLECTION}/search",
+                   {"vector": qs[i].tolist(), "k": K})
+        return res, time.perf_counter() - t0
+
+    http("POST", f"{url}/collections/{HTTP_COLLECTION}/search",
+         {"vector": qs[0].tolist(), "k": K})  # the mirror's first copy
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(HTTP_THREADS) as pool:
+        out = list(pool.map(one, range(len(qs))))
+    wall_s = time.perf_counter() - t0
+    lat = np.array([t for _, t in out]) * 1e3
+    direct_ms, mismatched = [], 0
+    ids = np.full((len(qs), K), -1, np.int64)
+    for i, (res, _) in enumerate(out):
+        t1 = time.perf_counter()
+        d, lab = direct.search(qs[i:i + 1], k=K)
+        direct_ms.append((time.perf_counter() - t1) * 1e3)
+        got = result_ids(res)
+        ids[i, :len(got)] = got
+        if not tie_aware_equal(got.tolist(), lab[0].astype(np.int64).tolist(),
+                               d[0]):
+            mismatched += 1
+    rec = recall(ids, gt_i[:len(qs)])
+    log("service http " + json.dumps(dict(
+        rows=direct.size, requests=len(qs), threads=HTTP_THREADS,
+        mode_chosen=mode, request_ms_median=float(np.median(lat)),
+        request_ms_p99=float(np.percentile(lat, 99)),
+        requests_per_s=len(qs) / wall_s,
+        direct_single_query_ms_median=float(np.median(direct_ms)),
+        recall_at_10=rec, mismatched=mismatched)))
+    if mismatched:
+        fail(f"{mismatched} HTTP searches differ from the direct searches")
+    if rec < HTTP_RECALL_MIN:
+        fail(f"HTTP recall@10 {rec} < {HTTP_RECALL_MIN}")
+    return direct
+
+
+def exact_ids(rows_dev, queries) -> np.ndarray:
+    _, ids = exact_search(torch.from_numpy(queries).cuda(), rows_dev, K)
+    return ids.cpu().numpy().astype(np.int64)
+
+
+def phase_http_collections(url, base, queries):
+    """(c) a HTTP_N-row collection built over HTTP: rows, the device
+    rebuild, PQ with rerank, deletes and compaction; then a hamming
+    collection. Returns the decode kernel's and K4's launches."""
+    col = f"{url}/collections/c100k"
+    rows = base[:HTTP_N]
+    qs = queries[:HTTP_QUERIES]
+    t0 = time.perf_counter()
+    http("POST", f"{url}/collections", {"name": "c100k", "metric": "l2sq"})
+    for i in range(0, HTTP_N, HTTP_BATCH):
+        res = http("POST", f"{col}/rows", {"rows": [
+            {"vector": r.tolist()} for r in rows[i:i + HTTP_BATCH]]})
+        if res["inserted"] != len(rows[i:i + HTTP_BATCH]):
+            fail(f"rows request {i // HTTP_BATCH}: {res['inserted']} inserted")
+    insert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = http("POST", f"{col}/index", {"external": True})
+    external_s = time.perf_counter() - t0
+    if res["indexed"] != HTTP_N:
+        fail(f"/index external indexed {res['indexed']}")
+    rows_dev = torch.from_numpy(rows).cuda()
+    truth = exact_ids(rows_dev, qs) + 1  # ids start at 1
+
+    def searched(**kw):
+        return np.stack([np.pad(result_ids(http("POST", f"{col}/search", {
+            "vector": q.tolist(), "k": K, **kw})), (0, K), constant_values=-1)
+            [:K] for q in qs])
+
+    flat_rec = recall(searched(), truth)
+    t0 = time.perf_counter()
+    res = http("POST", f"{col}/pq", {"num_subvectors": 32})
+    pq_s = time.perf_counter() - t0
+    if res != {"codebook": [32, 256, DIM // 32], "requantized": HTTP_N}:
+        fail(f"/pq answered {res}")
+    pq_decode.launches = 0
+    rerank_rec = recall(searched(rerank=100), truth)
+    auto_rec = recall(searched(rerank="auto"), truth)
+    rng = np.random.default_rng(11)
+    dead = rng.choice(HTTP_N, int(HTTP_N * HTTP_DELETE_SHARE),
+                      replace=False) + 1
+    res = http("DELETE", f"{col}/rows", {"ids": dead.tolist()})
+    if res["deleted"] != len(dead):
+        fail(f"DELETE rows deleted {res['deleted']} of {len(dead)}")
+    t0 = time.perf_counter()
+    res = http("POST", f"{col}/compact", {})
+    compact_s = time.perf_counter() - t0
+    if res != {"size": HTTP_N - len(dead), "reclaimed": len(dead)}:
+        fail(f"/compact answered {res}")
+    live = np.setdiff1d(np.arange(1, HTTP_N + 1), dead)
+    live_truth = live[exact_ids(rows_dev[torch.from_numpy(live - 1).cuda()],
+                                qs)]
+    got = searched(rerank=100)
+    check_live("HTTP after compact", got.astype(np.uint64),
+               dead.astype(np.uint64))
+    compact_rec = recall(got, live_truth)
+    decode_launches = pq_decode.launches
+    del rows_dev
+    log("service http collection " + json.dumps(dict(
+        rows=HTTP_N, cut="JSON carries a row as ~1.3 KB of text",
+        insert_s=insert_s, external_rebuild_s=external_s, pq_s=pq_s,
+        compact_s=compact_s, flat_recall_at_10=flat_rec,
+        pq_rerank100_recall_at_10=rerank_rec, pq_auto_recall_at_10=auto_rec,
+        after_compact_recall_at_10=compact_rec, deleted=len(dead),
+        decode_launches=decode_launches)))
+    if flat_rec < HTTP_RECALL_MIN:
+        fail(f"the rebuilt collection's recall@10 {flat_rec}")
+    for name, r in (("rerank=100", rerank_rec), ("auto", auto_rec),
+                    ("after compact", compact_rec)):
+        if r < PQ_AUTO_RECALL_MIN:
+            fail(f"HTTP PQ {name} recall@10 {r} < {PQ_AUTO_RECALL_MIN}")
+    if decode_launches <= 0:
+        fail("the HTTP PQ searches never launched the decode kernel")
+
+    # the hamming collection: +-1 floats, binarised by the collection
+    rng = np.random.default_rng(12)
+    bits = np.where(rng.random((HTTP_HAM_N, HAM_DIM)) < 0.5, -1.0,
+                    1.0).astype(np.float32)
+    hcol = f"{url}/collections/bits"
+    http("POST", f"{url}/collections", {"name": "bits", "metric": "hamming"})
+    for i in range(0, HTTP_HAM_N, HTTP_BATCH):
+        http("POST", f"{hcol}/rows", {"rows": [
+            {"vector": r.tolist()} for r in bits[i:i + HTTP_BATCH]]})
+    hq = bits[:HTTP_HAM_QUERIES].copy()
+    hq[:, :64] *= -1  # 64 bits off the stored row
+    hamming_block.launches = 0
+    bad = 0
+    for q in hq:
+        res = http("POST", f"{hcol}/search", {"vector": q.tolist(), "k": K})
+        ids = result_ids(res) - 1
+        d = np.array([r["distance"] for r in res["results"]])
+        host = (bits[ids] != q).sum(1)
+        best = np.sort((bits != q).sum(1))[:K]
+        bad += int(not (np.array_equal(d, host) and np.array_equal(d, best)))
+    k4_launches = hamming_block.launches
+    log("service http hamming " + json.dumps(dict(
+        rows=HTTP_HAM_N, bits=HAM_DIM, queries=HTTP_HAM_QUERIES,
+        k4_launches=k4_launches, distances_unequal=bad)))
+    if bad:
+        fail(f"{bad} hamming HTTP searches' distances differ from the host's")
+    if k4_launches <= 0:
+        fail("the HTTP hamming searches never launched K4")
+    return decode_launches, k4_launches
+
+
+def phase_weighted(direct, base, queries):
+    """(d) weighted_search of two query columns over the 1M index, held
+    to an exact float64 re-rank of the same candidate pools."""
+    worst, bad = 0.0, 0
+    t0 = time.perf_counter()
+    for i in range(WEIGHTED_QUERIES):
+        qa, qb = queries[i], queries[i + WEIGHTED_QUERIES]
+        d, lab = weighted_search([(direct, WEIGHTS[0], qa),
+                                  (direct, WEIGHTS[1], qb)], k=K)
+        cand = np.unique(np.concatenate(
+            [direct.search(q, k=max(2 * K, 16))[1][0] for q in (qa, qb)]))
+        rows = base[cand.astype(np.int64)].astype(np.float64)
+        total = (WEIGHTS[0] * ((rows - qa) ** 2).sum(1)
+                 + WEIGHTS[1] * ((rows - qb) ** 2).sum(1))
+        order = np.argsort(total, kind="stable")[:K]
+        worst = max(worst, float(np.max(np.abs(d - total[order])
+                                        / total[order])))
+        bad += int(not tie_aware_equal(lab.tolist(), cand[order].tolist(),
+                                       total[order]))
+    log("service weighted " + json.dumps(dict(
+        queries=WEIGHTED_QUERIES, weights=WEIGHTS,
+        s_per_query=(time.perf_counter() - t0) / WEIGHTED_QUERIES,
+        max_rel_err=worst, labels_unequal=bad)))
+    if bad or worst > 1e-5:
+        fail(f"weighted_search: {bad} label lists differ, relative error "
+             f"{worst}")
+
+
+def phase_jobs_and_cli(work, base_npy, snapshot, queries, gt_i, base):
+    """(e) an autotune job through the daemon and the stored result's
+    reuse; the CLI's graph search of the server's snapshot; the CLI's
+    chunked PQ table with a stopped and resumed run. Returns K1's
+    launches."""
+    q = JobQueue(os.path.join(work, "jobs"))
+    jid = q.submit("autotune", {"input": base_npy, "k": K,
+                                "target_recall": AUTOTUNE_TARGET})
+    gather_dists.launches = 0
+    t0 = time.perf_counter()
+    Daemon(q, device="cuda").run_pending()
+    job = q.get(jid)
+    k1 = gather_dists.launches
+    log("service autotune " + json.dumps(dict(
+        status=job["status"], error=job["error"], s=time.perf_counter() - t0,
+        k1_launches=k1, **(job["usage"] or {}))))
+    if job["status"] != "completed" or job["usage"]["best"] is None:
+        fail(f"the autotune job ended {job['status']}: {job['error']}")
+    store = os.path.join(work, "autotune.json")
+    save_results("smoke", [AutotuneResult(**r)
+                           for r in job["usage"]["results"]], store)
+    l0, t0 = gather_dists.launches, time.perf_counter()
+    best, results = autotune(np.load(base_npy, mmap_mode="r"),
+                             target_recall=AUTOTUNE_TARGET,
+                             model_name="smoke", results_path=store,
+                             device="cuda")
+    if (len(results) != 1 or gather_dists.launches != l0
+            or vars(best) != job["usage"]["best"]):
+        fail(f"the stored autotune result was not reused: {results}")
+    log(f"service autotune reuse: {vars(best)} in "
+        f"{time.perf_counter() - t0:.3f} s, no sweep")
+
+    queries_npy = os.path.join(work, "queries.npy")
+    np.save(queries_npy, queries)
+    buf = io.StringIO()
+    l0, t0 = gather_dists.launches, time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["search", "--index", snapshot, "--queries", queries_npy,
+                  "--mode", "graph", "--k", str(K), "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    k1_cli = gather_dists.launches - l0
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()]
+    ids = np.full((len(queries), K), -1, np.int64)
+    for i, row in enumerate(rows):
+        ids[i, :len(row)] = [r["label"] for r in row]
+    rec = recall(ids, gt_i)
+    log("service cli search " + json.dumps(dict(
+        queries=len(rows), s=cli_s, recall_at_10=rec, k1_launches=k1_cli)))
+    if len(rows) != len(queries) or rec < GRAPH_RECALL_MIN:
+        fail(f"CLI search: {len(rows)} rows, recall@10 {rec}")
+    if k1_cli <= 0:
+        fail("the CLI's graph search never launched K1")
+
+    out = os.path.join(work, "pq.npz")
+    t0 = time.perf_counter()
+    cli.main(["pq-table", "--input", base_npy, "--output", out,
+              "--chunk-rows", str(PQ_CHUNK_ROWS), "--clusters", "256",
+              "--splits", "32", "--iters", str(PQ_TABLE_ITERS),
+              "--device", "cuda"])
+    table_s = time.perf_counter() - t0
+    z = np.load(out)
+    cb = PQCodebook(z["codebook"])
+    codes = pq_encode(base, cb, device="cuda")
+    if not np.array_equal(codes, z["codes"]):
+        fail(f"pq-table codes differ from pq_encode's in "
+             f"{int((codes != z['codes']).sum())} places")
+
+    def mse(book, c):
+        rec_rows = book.centroids[np.arange(c.shape[1])[None, :], c]
+        return float(np.mean((rec_rows.reshape(len(c), -1) - base) ** 2))
+
+    t0 = time.perf_counter()
+    ram = train_codebook(base, num_subvectors=32, num_centroids=256,
+                         iters=PQ_TABLE_ITERS, seed=0, device="cuda")
+    ram_s = time.perf_counter() - t0
+    mse_chunked = mse(cb, codes)
+    mse_ram = mse(ram, pq_encode(base, ram, device="cuda"))
+    state = os.path.join(work, "pq.state")
+    kw = dict(num_subvectors=32, num_centroids=256, seed=0,
+              resume_path=state, chunk_rows=PQ_CHUNK_ROWS, device="cuda")
+    t0 = time.perf_counter()
+    train_codebook_chunked(base_npy, iters=PQ_STOP_PASSES, **kw)
+    stop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = train_codebook_chunked(base_npy, iters=PQ_TABLE_ITERS, **kw)
+    resume_s = time.perf_counter() - t0
+    identical = np.array_equal(resumed.centroids, cb.centroids)
+    log("service pq-table " + json.dumps(dict(
+        rows=len(base), chunk_rows=PQ_CHUNK_ROWS, passes=PQ_TABLE_ITERS,
+        cli_s=table_s, s_per_pass=stop_s / PQ_STOP_PASSES,
+        resumed_s_per_pass=resume_s / (PQ_TABLE_ITERS - PQ_STOP_PASSES),
+        mse_chunked=mse_chunked, mse_in_ram=mse_ram, in_ram_train_s=ram_s,
+        resume_bit_identical=identical)))
+    if mse_chunked > PQ_MSE_RATIO * mse_ram:
+        fail(f"chunked PQ MSE {mse_chunked} > {PQ_MSE_RATIO} x in-RAM "
+             f"{mse_ram}")
+    if not identical:
+        fail("the resumed PQ training differs from the unbroken one")
+    return k1 + k1_cli
+
+
+def phase_service(work, snapshot, base, queries, gt_i):
+    """(b)-(e) on the indexing server's snapshot. Returns the service
+    launches of K1, the decode kernel and K4."""
+    t_phase = time.perf_counter()
+    # the snapshot is the collection's index file; its row store is empty
+    with open(os.path.join(work, f"{HTTP_COLLECTION}.json"), "w") as f:
+        json.dump({"name": HTTP_COLLECTION, "dim": DIM,
+                   "metric": int(Metric.L2SQ), "next_id": len(base),
+                   "rows": {}, "has_index": True}, f)
+    t0 = time.perf_counter()
+    api = HttpApi(data_dir=work, device="cuda").start()
+    log(f"service http: HttpApi loaded the {len(base)}-row snapshot in "
+        f"{time.perf_counter() - t0:.2f} s")
+    url = f"http://127.0.0.1:{api.port}"
+    try:
+        direct = phase_http_1m(url, snapshot, queries, gt_i)
+        decode_launches, k4_launches = phase_http_collections(url, base,
+                                                              queries)
+    finally:
+        api.stop()  # saves every collection into ``work``
+    phase_weighted(direct, base, queries)
+    del direct
+    base_npy = os.path.join(work, "base.npy")
+    np.save(base_npy, base)
+    k1 = phase_jobs_and_cli(work, base_npy, snapshot, queries, gt_i, base)
+    log(f"service phase: {time.perf_counter() - t_phase:.1f} s")
+    return k1, decode_launches, k4_launches
+
+
 def check_one_pass(ev):
     """The hamming flat batch's kernels (logged by name): K4 writes the
     negated, masked score block itself, so no negate or mask kernel may
@@ -1538,10 +2014,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base rows")
     ap.add_argument("--i8-n", type=int, default=None,
-                    help="rows of the i8 path (default: --n)")
+                    help=f"rows of the i8 path (default: {I8_N} or --n, "
+                         "the fewer)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    i8_n = args.i8_n or args.n
+    i8_n = args.i8_n or min(I8_N, args.n)
 
     t_start = time.perf_counter()
     smi = phase_environment()
@@ -1550,6 +2027,8 @@ def main(argv=None):
         log(f"n cut: {args.n} rows instead of 1000000")
     if i8_n != args.n:
         log(f"i8 n cut: {i8_n} rows instead of {args.n}")
+    log(f"persistence cuts: WAL_N {WAL_N} rows instead of 65536, "
+        f"STREAM_QUERIES {STREAM_QUERIES} instead of 16")
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
     base, centers = clustered(rng, args.n)
@@ -1571,12 +2050,20 @@ def main(argv=None):
         base, queries, base_dev, queries_dev, args.seed)
     torch.cuda.synchronize()
     del base_dev
+    # the service phase's files: the server's snapshot, the rows as .npy,
+    # the collections the HTTP API saves, jobs, the PQ table
+    work = snapshot_dir(3 * base.nbytes)
+    snapshot = os.path.join(work.name, f"{HTTP_COLLECTION}.ldb")
     k1_build_launches, dev_ix = phase_device_build(
-        base, queries, gt_i, centers, host_build_s, args.seed)
+        base, queries, gt_i, centers, host_build_s, args.seed, snapshot)
     torch.cuda.synchronize()
     k1_persist = phase_persistence(dev_ix, queries, queries_dev, centers,
                                    args.seed)
     del dev_ix
+    torch.cuda.synchronize()
+    k1_service, pq_service, k4_service = phase_service(
+        work.name, snapshot, base, queries, gt_i)
+    work.cleanup()
     torch.cuda.synchronize()
     pq_launches = phase_pq_path(base, queries, queries_dev, gt_i, args.seed)
     torch.cuda.synchronize()
@@ -1606,6 +2093,7 @@ def main(argv=None):
         "launches": launches,
         "build_launches": k1_build_launches,
         "persist_launches": k1_persist,
+        "service_launches": k1_service,
         "max_abs_err": max_abs,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -1622,6 +2110,7 @@ def main(argv=None):
                     "benchmarks/exp_hilo_v3.py:135 (K6)",
         "launches": pq_launches,
         "persist_launches": pq_persist,
+        "service_launches": pq_service,
         "max_abs_err": pq_max_abs,
         "ms": pq["ms"],
         "plain_ms": pq["plain_ms"],
@@ -1637,6 +2126,7 @@ def main(argv=None):
         "launches": k4_launches,
         "build_launches": k4_build_launches,
         "persist_launches": k4_persist,
+        "service_launches": k4_service,
         "max_abs_err": k4_max_abs,
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],

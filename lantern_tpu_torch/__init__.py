@@ -27,7 +27,17 @@ reference's module names so each function has a counterpart to read:
                         the JAX package's format
 - ``storage.replica``   ``IndexFollower``, a log-following read replica
 - ``utils.failpoints``  failure-point fault injection
+- ``utils.logger``      the services' leveled logger
 - ``index``             the ``Index`` facade
+- ``weighted``          weighted multi-column and hybrid search over indexes
+- ``autotune``          the (m, ef_construction, ef) sweep
+- ``service``           the external indexing server and its client
+                        (``protocol``, ``client``, ``index_server``), the
+                        HTTP collections API (``http_api``), the job daemon
+                        (``daemon``) and in-process services (``bgworkers``)
+- ``embeddings``        text embedding runtimes (hash, local, REST)
+- ``io.dotvecs``        .fvecs / .ivecs / .bvecs readers
+- ``cli``               the ``lantern-tpu-torch`` command line
 
 It imports torch and numpy only, never jax or lantern_tpu. Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; with no card and no

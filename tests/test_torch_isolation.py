@@ -1,7 +1,7 @@
 """The port stands alone: importing every lantern_tpu_torch module and
 chip_smoke pulls in neither jax, ml_dtypes nor lantern_tpu, and an entry
-point given no device on a machine without CUDA raises instead of running
-on the CPU."""
+point or a service given no device on a machine without CUDA raises
+instead of running on the CPU."""
 
 import pathlib
 import subprocess
@@ -22,7 +22,7 @@ PROBE = textwrap.dedent("""
                  if m.split(".")[0] in ("jax", "jaxlib", "lantern_tpu", "flax",
                                         "ml_dtypes"))
     assert not bad, bad
-    assert len(mods) >= 27, mods
+    assert len(mods) >= 41, mods
     assert {"lantern_tpu_torch.ops.hamming",
             "lantern_tpu_torch.quant.scalar",
             "lantern_tpu_torch.graph.build_device",
@@ -31,7 +31,19 @@ PROBE = textwrap.dedent("""
             "lantern_tpu_torch.graph.host_build",
             "lantern_tpu_torch.storage.snapshot",
             "lantern_tpu_torch.storage.replica",
-            "lantern_tpu_torch.utils.failpoints"} <= set(mods), mods
+            "lantern_tpu_torch.utils.failpoints",
+            "lantern_tpu_torch.utils.logger",
+            "lantern_tpu_torch.io.dotvecs",
+            "lantern_tpu_torch.embeddings",
+            "lantern_tpu_torch.weighted",
+            "lantern_tpu_torch.autotune",
+            "lantern_tpu_torch.service.protocol",
+            "lantern_tpu_torch.service.client",
+            "lantern_tpu_torch.service.index_server",
+            "lantern_tpu_torch.service.http_api",
+            "lantern_tpu_torch.service.daemon",
+            "lantern_tpu_torch.service.bgworkers",
+            "lantern_tpu_torch.cli"} <= set(mods), mods
     import torch
     from lantern_tpu_torch import HnswParams, Index
     if not torch.cuda.is_available():
@@ -41,6 +53,17 @@ PROBE = textwrap.dedent("""
             assert "CUDA" in str(e)
         else:
             raise AssertionError("Index without a device ran on the CPU")
+        from lantern_tpu_torch.service.http_api import HttpApi
+        from lantern_tpu_torch.service.index_server import IndexServer
+        for make in (lambda: IndexServer(port=0, status_port=None),
+                     lambda: HttpApi(port=0)):
+            try:
+                make()
+            except RuntimeError as e:
+                assert "CUDA" in str(e)
+            else:
+                raise AssertionError("a service without a device ran on "
+                                     "the CPU")
     print("isolated", len(mods))
 """)
 

@@ -315,6 +315,62 @@ def test_searches_beside_writes_copy_a_consistent_engine():
     np.testing.assert_array_equal(lab[:, 0], np.arange(n - 4, n))
 
 
+def test_reindex_concurrent_hides_a_delete_from_later_searches():
+    """Graph searches on a thread beside a rebuild and add/delete pairs:
+    no search that began after a delete() returned yields its labels,
+    while a search that began between a pair's add and delete may."""
+    import sys
+    import time
+
+    rng = np.random.default_rng(41)
+    n, pairs, rows = 4000, 6, 128
+    base = rng.standard_normal((n, 16)).astype(np.float32)
+    qs = base[1::4][:32]
+    pair_labels = np.arange(10_000, 10_000 + pairs * rows, dtype=np.uint64)
+    pair_rows = (np.repeat(qs, pairs * rows // len(qs), 0) + 0.01
+                 * rng.standard_normal((pairs * rows, 16))).astype(np.float32)
+    ix = Index(HnswParams(dim=16, m=8, ef_construction=48),
+               capacity=n + pairs * rows)
+    ix.add(base, nthreads=2)
+    gone = [np.arange(0, n, 4, dtype=np.uint64)]  # deletes that returned
+    ix.delete(gone[0])
+    stop, errors, served = threading.Event(), [], []
+
+    def loop():
+        try:
+            while not stop.is_set():
+                gone_before = np.concatenate(list(gone))
+                _, lab = ix.search(qs, k=10, mode="graph")
+                served.append(lab)
+                assert not np.isin(lab, gone_before).any()
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    t = threading.Thread(target=loop)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        t.start()
+        h = ix.reindex_concurrent(nthreads=1)
+        for p in range(pairs):
+            lo = p * rows
+            ix.add(pair_rows[lo:lo + rows], labels=pair_labels[lo:lo + rows],
+                   nthreads=1)
+            time.sleep(0.1)
+            ix.delete(pair_labels[lo:lo + rows // 2])
+            gone.append(pair_labels[lo:lo + rows // 2])
+            time.sleep(0.1)
+        assert h.join(timeout=600) and h.swapped
+    finally:
+        stop.set()
+        t.join(timeout=60)
+        sys.setswitchinterval(switch)
+    assert not t.is_alive() and not errors, errors
+    assert len(served) >= 2
+    _, lab = ix.search(qs, k=10, mode="graph")
+    assert not np.isin(lab, np.concatenate(gone)).any()
+
+
 # ---- the streaming scan ----
 
 def test_streaming_matches_reference():
