@@ -123,10 +123,30 @@ Phases, each of which exits non-zero on failure:
    in-RAM training, a run stopped after PQ_STOP_PASSES passes and resumed
    bit-identical to it; any non-200 response, error frame or failed job
    fails the run;
-14. one JSON line of kernel numbers (K1's and K4's ``build_launches`` from
-   (b) and (c), every kernel's ``persist_launches`` from 12 and
-   ``service_launches`` from 13), the ``nvidia-smi`` line, and last the
-   result line ``{"ok": true, "device": {...}}``.
+14. sharding (``parallel/sharded.py``): the f32 phase's rows over SHARDS
+   shards stacked on the one card, every kernel's launches counted from 0
+   over (a)-(d): (a) ``build_sharded_device`` (batch 1024, flat pools) beside
+   phase 11's single-index build; ``search_sharded`` (k=10, ef=64) on the
+   query batches, recall@10 against phase 5's truth, ms a batch and K1's
+   launches a batch beside phase 5's; ``flat_search_sharded(exact=True)``;
+   (b) ``quantize_sharded("pq")`` (32 subvectors, trained on
+   SHARD_PQ_TRAIN_ROWS rows, rerank rows kept): the ADC flat scan and
+   ``flat_search_sharded_rerank`` (shortlist SHARD_RERANK), the rerank's
+   recall at least the scan's, the decode kernel's launches;
+   ``quantize_sharded("i8")``, beam and flat; (c) ``insert_sharded`` of
+   SHARD_INSERT_N clustered rows (self-search top-1), ``delete_sharded`` of
+   SHARD_DELETES labels (none returned), ``save_sharded`` / ``load_sharded``
+   (snapshot MiB, seconds; graph and flat searches after the load equal
+   to before), ``build_sharded`` (host) and ``compact_sharded`` of the
+   first SHARD_COMPACT_N rows with a tenth deleted; (d)
+   ``build_sharded_device`` over phase 9's first SHARD_HAM_N 1024-bit rows
+   (K4 pools), beam and flat: distances equal to the host's popcount,
+   tie-aware recall@10 against a K4 truth over those rows;
+15. one JSON line of kernel numbers (K1's and K4's ``build_launches`` from
+   (b) and (c), every kernel's ``persist_launches`` from 12,
+   ``service_launches`` from 13 and ``shard_launches`` from 14), the
+   ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
+   {...}}``.
 
 Needs the ``lantern_tpu_torch`` package beside it and a CUDA device; never
 imports jax or lantern_tpu.
@@ -177,6 +197,20 @@ from lantern_tpu_torch.quant.pq import (
     pq_encode,
     train_codebook,
     train_codebook_chunked,
+)
+from lantern_tpu_torch.parallel import (
+    build_sharded,
+    build_sharded_device,
+    compact_sharded,
+    delete_sharded,
+    flat_search_sharded,
+    flat_search_sharded_rerank,
+    insert_sharded,
+    load_sharded,
+    make_mesh,
+    quantize_sharded,
+    save_sharded,
+    search_sharded,
 )
 from lantern_tpu_torch.service.client import ExternalIndexClient, build_via_server
 from lantern_tpu_torch.service.daemon import Daemon, JobQueue
@@ -246,6 +280,16 @@ HTTP_HAM_N, HTTP_HAM_QUERIES = 10_000, 32
 WEIGHTED_QUERIES, WEIGHTS = 64, (0.7, 0.3)
 PQ_CHUNK_ROWS, PQ_STOP_PASSES, PQ_TABLE_ITERS, PQ_MSE_RATIO = 65536, 3, 8, 1.15
 AUTOTUNE_TARGET = 0.9
+# the sharding phase: the f32 rows over SHARDS shards on the one card (the
+# reference's external-indexing fleet of 4 servers); PQ training rows; the
+# rows inserted and labels deleted; the rows of the host build + compact
+# part (a compact of 1M rows would be a second full build) and of the
+# hamming part, each the first rows of its path's table
+SHARDS = 4
+SHARD_PQ_TRAIN_ROWS, SHARD_RERANK = 65_536, 100
+SHARD_INSERT_N, SHARD_DELETES = 16_384, 50_000
+SHARD_COMPACT_N, SHARD_COMPACT_DELETE_EVERY = 100_000, 10
+SHARD_HAM_N = 100_000
 
 
 def fail(msg: str) -> None:
@@ -564,7 +608,7 @@ def phase_main_path(base, queries, base_dev, queries_dev, seed):
              f"{GRAPH_RECALL_MIN}")
     if launches == 0:
         fail("the graph search never launched K1 (gather_dists.launches == 0)")
-    return launches, build_s, gt_i
+    return launches, build_s, gt_i, results
 
 
 def pq_exact_dists(graph, queries_dev, ids):
@@ -1263,7 +1307,7 @@ def phase_device_build(base, queries, gt_i, centers, host_build_s, seed,
     log(f"device insert validate: ok {rep.ok}, {rep.n_reachable}/{rep.n} "
         "reachable")
     rep.raise_if_failed()
-    return k1_launches, ix
+    return k1_launches, ix, build_s
 
 
 def phase_hamming_device_build(rows, queries, gt_i, gt_d, host_build_s, seed):
@@ -1975,6 +2019,276 @@ def phase_service(work, snapshot, base, queries, gt_i):
     return k1, decode_launches, k4_launches
 
 
+def sharded_batches(fn, batches, name, k=K, labels_are_gids=True):
+    """fn(batch) -> (dists, global ids, labels) tensors over every batch,
+    after one warm-up batch; returns numpy (dists, gids, labels) and the
+    ms a batch. Fails on a wrong shape, a non-finite distance or (unless
+    ``labels_are_gids`` is False: a compact assigns gids anew) a label that
+    is not its gid (the phase's labels are the row numbers)."""
+    fn(batches[0])
+    torch.cuda.synchronize()
+    out = []
+    t0 = time.perf_counter()
+    for b in batches:
+        out.append(fn(b))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    d, g, lab = (np.concatenate([o[i].cpu().numpy() for o in out])
+                 for i in range(3))
+    nq = sum(len(b) for b in batches)
+    if g.shape != (nq, k) or not np.isfinite(d).all():
+        fail(f"sharded {name}: results of shape {g.shape} or non-finite dists")
+    if labels_are_gids and not np.array_equal(lab, g.astype(np.int64)):
+        fail(f"sharded {name}: labels differ from the global ids")
+    return d, g, lab, ms
+
+
+def check_exact_dists(name, base, queries, d, g, rtol=1e-4, atol=1e-2):
+    rows = torch.from_numpy(base[g]).cuda()
+    exact = ((rows - torch.from_numpy(queries).cuda()[:, None, :]) ** 2).sum(-1)
+    exact = exact.cpu().numpy()
+    if not np.allclose(d, exact, rtol=rtol, atol=atol):
+        fail(f"sharded {name}: returned distances disagree with the rows' "
+             f"exact distances (max abs {np.abs(d - exact).max()})")
+
+
+def phase_sharding(base, queries, gt_i, centers, ham_rows, ham_queries,
+                   single, seed):
+    """(a)-(d) of the sharding phase over SHARDS shards on the one card.
+    ``single``: the unsharded numbers to report beside (phase 5's graph and
+    flat ms a batch and K1 launches a batch, phase 11's build seconds).
+    Returns each kernel's launches over (a)-(d)."""
+    n = base.shape[0]
+    t_phase = time.perf_counter()
+    params = HnswParams(dim=DIM, m=16, ef_construction=128)
+    q_dev = torch.from_numpy(queries).cuda()
+    batches = [q_dev[i:i + BATCH] for i in range(0, len(queries), BATCH)]
+    ham = ham_rows[:SHARD_HAM_N]
+    hq_dev = torch.from_numpy(ham_queries.view(np.int32)).cuda()
+    hbatches = [hq_dev[i:i + BATCH] for i in range(0, len(ham_queries), BATCH)]
+    # truths that go through no wrapper of the counted run: K4 scores the
+    # hamming truth, so it comes before the counts are set to 0
+    ham_gt_d, _ = hamming_exact_topk(hq_dev, torch.from_numpy(
+        ham.view(np.int32)).cuda(), K)
+    ham_kth = ham_gt_d.cpu().numpy()[:, K - 1:K]
+    mesh = make_mesh(n_shards=SHARDS)
+    # the sharded path's launches start here
+    gather_dists.launches = pq_decode.launches = hamming_block.launches = 0
+
+    # (a) the parallel device build, the beam and the exact flat scan
+    t0 = time.perf_counter()
+    ix = build_sharded_device(base, params, mesh, batch=BATCH, seed=seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launched = (gather_dists.launches, pq_decode.launches, hamming_block.launches)
+    log(f"sharded device build: {n} rows x {DIM} over {SHARDS} shards of "
+        f"{ix.cap} slots (m=16, ef_construction=128, batch {BATCH}, flat "
+        f"pools) in {build_s:.1f} s; single-index device build (phase 11) "
+        f"{single['device_build_s']:.1f} s; launches (K1, decode, K4) "
+        f"{launched}")
+    if any(launched):
+        fail(f"the flat-pool sharded build launched kernels {launched}")
+    k10 = gather_dists.launches
+    d, g, _, graph_ms = sharded_batches(
+        lambda b: search_sharded(ix, b, k=K, ef=64), batches, "graph")
+    k1_per_batch = (gather_dists.launches - k10) / (len(batches) + 1)
+    check_exact_dists("graph", base, queries, d, g)
+    graph_r = recall(g, gt_i)
+    d, g, _, flat_ms = sharded_batches(
+        lambda b: flat_search_sharded(ix, b, k=K, exact=True), batches, "flat")
+    check_exact_dists("flat", base, queries, d, g)
+    flat_r = recall(g, gt_i)
+    log("sharded search " + json.dumps(dict(
+        shards=SHARDS, graph_ms_per_batch=graph_ms,
+        single_graph_ms_per_batch=single["graph_ms"],
+        graph_recall_at_10=graph_r, k1_launches_per_batch=k1_per_batch,
+        single_k1_launches_per_batch=single["k1_per_batch"],
+        flat_ms_per_batch=flat_ms, single_flat_ms_per_batch=single["flat_ms"],
+        flat_recall_at_10=flat_r)))
+    if graph_r < GRAPH_RECALL_MIN:
+        fail(f"sharded graph recall@10 {graph_r} < {GRAPH_RECALL_MIN}")
+    if flat_r < FLAT_RECALL_MIN:
+        fail(f"sharded exact flat recall@10 {flat_r} < {FLAT_RECALL_MIN}")
+    if k1_per_batch <= 0:
+        fail("the sharded beam never launched K1")
+
+    # (b) PQ shards (ADC flat scan, rerank) and i8 shards (beam, flat)
+    pq0 = pq_decode.launches
+    t0 = time.perf_counter()
+    ixq = quantize_sharded(ix, mesh, quant="pq",
+                           train_rows=SHARD_PQ_TRAIN_ROWS, seed=seed)
+    torch.cuda.synchronize()
+    pq_s = time.perf_counter() - t0
+    pq_enc = pq_decode.launches - pq0
+    _, g, _, adc_ms = sharded_batches(
+        lambda b: flat_search_sharded(ixq, b, k=K), batches, "pq flat")
+    adc_r = recall(g, gt_i)
+    d, g, _, rr_ms = sharded_batches(
+        lambda b: flat_search_sharded_rerank(ixq, b, k=K,
+                                             shortlist=SHARD_RERANK),
+        batches, "pq rerank")
+    # the rerank scores bf16 copies of the rows: within bf16's rounding
+    check_exact_dists("pq rerank", base, queries, d, g, rtol=2e-2, atol=0.1)
+    rr_r = recall(g, gt_i)
+    pq_per_batch = (pq_decode.launches - pq0 - pq_enc) / (2 * len(batches) + 2)
+    log("sharded pq " + json.dumps(dict(
+        quantize_s=pq_s, subvectors=ixq.vectors.shape[2],
+        train_rows=SHARD_PQ_TRAIN_ROWS, adc_flat_ms_per_batch=adc_ms,
+        adc_flat_recall_at_10=adc_r, rerank_ms_per_batch=rr_ms,
+        rerank_recall_at_10=rr_r,
+        decode_launches_per_batch=pq_per_batch)))
+    if rr_r < PQ_AUTO_RECALL_MIN or rr_r < adc_r:
+        fail(f"sharded PQ rerank recall@10 {rr_r} under {PQ_AUTO_RECALL_MIN} "
+             f"or the ADC scan's {adc_r}")
+    if pq_per_batch <= 0:
+        fail("the sharded PQ scans never launched the decode kernel")
+    del ixq
+    t0 = time.perf_counter()
+    ix8 = quantize_sharded(ix, mesh, quant="i8")
+    torch.cuda.synchronize()
+    i8_s = time.perf_counter() - t0
+    _, g, _, i8g_ms = sharded_batches(
+        lambda b: search_sharded(ix8, b, k=K, ef=64), batches, "i8 graph")
+    i8g_r = recall(g, gt_i)
+    _, g, _, i8f_ms = sharded_batches(
+        lambda b: flat_search_sharded(ix8, b, k=K), batches, "i8 flat")
+    i8f_r = recall(g, gt_i)
+    log("sharded i8 " + json.dumps(dict(
+        quantize_s=i8_s, graph_ms_per_batch=i8g_ms, graph_recall_at_10=i8g_r,
+        flat_ms_per_batch=i8f_ms, flat_recall_at_10=i8f_r)))
+    if min(i8g_r, i8f_r) < I8_RECALL_MIN:
+        fail(f"sharded i8 recall@10 (graph {i8g_r}, flat {i8f_r}) < "
+             f"{I8_RECALL_MIN}")
+    del ix8
+
+    # (c) the lifecycle: insert, delete, save / load, host build + compact
+    rng = np.random.default_rng(seed + 9)
+    extra = (centers[rng.integers(0, len(centers), SHARD_INSERT_N)] + 0.35
+             * rng.standard_normal((SHARD_INSERT_N, DIM), dtype=np.float32))
+    extra = extra.astype(np.float32)
+    t0 = time.perf_counter()
+    ix = insert_sharded(ix, extra, mesh, batch=BATCH, seed=seed)
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    e_dev = torch.from_numpy(extra).cuda()
+    _, g, _, _ = sharded_batches(
+        lambda b: search_sharded(ix, b, k=1, ef=64),
+        [e_dev[i:i + BATCH] for i in range(0, SHARD_INSERT_N, BATCH)],
+        "insert self-search", k=1)
+    top1 = float((g[:, 0] == n + np.arange(SHARD_INSERT_N)).mean())
+    del e_dev
+    dead = rng.choice(n + SHARD_INSERT_N, SHARD_DELETES,
+                      replace=False).astype(np.uint64)
+    t0 = time.perf_counter()
+    ix = delete_sharded(ix, dead)
+    delete_s = time.perf_counter() - t0
+    before = {}
+    for mode, fn in (("graph", lambda b: search_sharded(ix, b, k=K, ef=64)),
+                     ("flat", lambda b: flat_search_sharded(ix, b, k=K))):
+        d, g, lab, _ = sharded_batches(fn, batches, f"{mode} after delete")
+        check_live(f"sharded {mode} after delete", lab, dead.astype(np.int64))
+        before[mode] = (d, g, lab)
+    need = sum(ix.num_nodes) * (DIM * 4 + 4 * params.m0 + 32)
+    work = snapshot_dir(need)
+    try:
+        path = os.path.join(work.name, "sharded")
+        t0 = time.perf_counter()
+        save_sharded(ix, path)
+        save_s = time.perf_counter() - t0
+        mib = sum(os.path.getsize(os.path.join(path, f))
+                  for f in os.listdir(path)) / 2**20
+        t0 = time.perf_counter()
+        loaded = load_sharded(path, mesh, engine="native")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        work.cleanup()
+    for mode, fn in (("graph", lambda b: search_sharded(loaded, b, k=K, ef=64)),
+                     ("flat", lambda b: flat_search_sharded(loaded, b, k=K))):
+        got = sharded_batches(fn, batches, f"{mode} after load")[:3]
+        for what, a, b in zip(("distances", "gids", "labels"), got,
+                              before[mode]):
+            if not np.array_equal(a, b):
+                fail(f"sharded {mode} after load: {what} differ from before "
+                     f"the save ({int((a != b).sum())} of {a.size})")
+    log("sharded lifecycle " + json.dumps(dict(
+        insert_rows=SHARD_INSERT_N, insert_s=insert_s,
+        insert_self_top1=top1, deleted=SHARD_DELETES, delete_s=delete_s,
+        snapshot_mib=mib, save_s=save_s, load_s=load_s,
+        searches_after_load_equal=True)))
+    if top1 < INSERT_SELF_MIN:
+        fail(f"sharded insert self-search top-1 {top1} < {INSERT_SELF_MIN}")
+    del ix, loaded
+    sub = base[:SHARD_COMPACT_N]
+    t0 = time.perf_counter()
+    ixh = build_sharded(sub, params, mesh, seed=seed)
+    host_s = time.perf_counter() - t0
+    dead = np.arange(0, SHARD_COMPACT_N, SHARD_COMPACT_DELETE_EVERY,
+                     dtype=np.uint64)
+    t0 = time.perf_counter()
+    ixc = compact_sharded(delete_sharded(ixh, dead), mesh, batch=BATCH,
+                          seed=seed)
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    live = np.setdiff1d(np.arange(SHARD_COMPACT_N), dead.astype(np.int64))
+    _, live_gt = exact_search(q_dev, torch.from_numpy(sub[live]).cuda(), K)
+    live_gt = live[live_gt.cpu().numpy()]
+    _, g, lab, compact_ms = sharded_batches(
+        lambda b: search_sharded(ixc, b, k=K, ef=64), batches, "compacted",
+        labels_are_gids=False)
+    check_live("sharded graph after compact", lab, dead.astype(np.int64))
+    compact_r = recall(lab, live_gt)
+    log("sharded host build + compact " + json.dumps(dict(
+        rows=SHARD_COMPACT_N, host_build_s=host_s, deleted=len(dead),
+        compact_s=compact_s, live=sum(ixc.num_nodes),
+        graph_ms_per_batch=compact_ms, graph_recall_at_10=compact_r)))
+    if sum(ixc.num_nodes) != len(live) or compact_r < GRAPH_RECALL_MIN:
+        fail(f"sharded compact: {sum(ixc.num_nodes)} rows (want {len(live)}),"
+             f" recall@10 {compact_r}")
+    del ixh, ixc
+
+    # (d) hamming shards: device build (K4 pools), beam and flat scan
+    hparams = HnswParams(dim=HAM_DIM, metric=Metric.HAMMING, quant=QuantKind.B1)
+    k40 = hamming_block.launches
+    t0 = time.perf_counter()
+    ixb = build_sharded_device(ham, hparams, mesh, batch=BATCH, seed=seed)
+    torch.cuda.synchronize()
+    ham_s = time.perf_counter() - t0
+    ham_build_k4 = hamming_block.launches - k40
+    out = {}
+    for mode, fn in (("graph", lambda b: search_sharded(ixb, b, k=K, ef=64)),
+                     ("flat", lambda b: flat_search_sharded(ixb, b, k=K))):
+        d, g, _, ms = sharded_batches(fn, hbatches, f"hamming {mode}")
+        exact = host_hamming(ham, ham_queries, g)
+        if not np.array_equal(d, exact):
+            fail(f"sharded hamming {mode}: distances differ from the host's "
+                 f"popcount (max abs {np.abs(d - exact).max()})")
+        out[mode] = (float((exact <= ham_kth).mean()), ms)
+    log("sharded hamming " + json.dumps(dict(
+        rows=SHARD_HAM_N, bits=HAM_DIM, build_s=ham_s,
+        build_k4_launches=ham_build_k4,
+        graph_recall_at_10_tie_aware=out["graph"][0],
+        graph_ms_per_batch=out["graph"][1],
+        flat_recall_at_10_tie_aware=out["flat"][0],
+        flat_ms_per_batch=out["flat"][1])))
+    if out["graph"][0] < HAM_GRAPH_RECALL_MIN:
+        fail(f"sharded hamming graph tie-aware recall@10 {out['graph'][0]} < "
+             f"{HAM_GRAPH_RECALL_MIN}")
+    if out["flat"][0] < HAM_FLAT_RECALL_MIN:
+        fail(f"sharded hamming flat tie-aware recall@10 {out['flat'][0]} < "
+             f"{HAM_FLAT_RECALL_MIN}")
+    del ixb
+    launches = {"gather_dists": gather_dists.launches,
+                "pq_decode": pq_decode.launches,
+                "hamming_block": hamming_block.launches}
+    log(f"sharding phase: {time.perf_counter() - t_phase:.1f} s, launches "
+        + json.dumps(launches))
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"the sharding phase never launched {name}")
+    return launches
+
+
 def check_one_pass(ev):
     """The hamming flat batch's kernels (logged by name): K4 writes the
     negated, masked score block itself, so no negate or mask kernel may
@@ -2046,7 +2360,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     k4, k4_max_abs = phase_hamming_kernel(args.n, args.seed)
     torch.cuda.synchronize()
-    launches, host_build_s, gt_i = phase_main_path(
+    launches, host_build_s, gt_i, main_results = phase_main_path(
         base, queries, base_dev, queries_dev, args.seed)
     torch.cuda.synchronize()
     del base_dev
@@ -2054,7 +2368,7 @@ def main(argv=None):
     # the collections the HTTP API saves, jobs, the PQ table
     work = snapshot_dir(3 * base.nbytes)
     snapshot = os.path.join(work.name, f"{HTTP_COLLECTION}.ldb")
-    k1_build_launches, dev_ix = phase_device_build(
+    k1_build_launches, dev_ix, dev_build_s = phase_device_build(
         base, queries, gt_i, centers, host_build_s, args.seed, snapshot)
     torch.cuda.synchronize()
     k1_persist = phase_persistence(dev_ix, queries, queries_dev, centers,
@@ -2074,7 +2388,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     k4_build_launches = phase_hamming_device_build(
         ham_rows, ham_queries, ham_gt_i, ham_gt_d, ham_build_s, args.seed)
-    del ham_rows
+    ham_rows = ham_rows[:SHARD_HAM_N].copy()  # the sharding phase's
     torch.cuda.synchronize()
     k4_persist, pq_persist = phase_persistence_roundtrips(
         ham_ix, ham_queries, opq)
@@ -2082,6 +2396,13 @@ def main(argv=None):
     torch.cuda.synchronize()
     phase_i8_path(base[:i8_n], queries, queries_dev,
                   gt_i if i8_n == args.n else None, args.seed)
+    torch.cuda.synchronize()
+    shard = phase_sharding(
+        base, queries, gt_i, centers, ham_rows, ham_queries,
+        dict(graph_ms=main_results["graph"]["ms_per_batch"],
+             flat_ms=main_results["flat"]["ms_per_batch"],
+             k1_per_batch=main_results["graph"]["k1_launches_per_batch"],
+             device_build_s=dev_build_s), args.seed)
     torch.cuda.synchronize()
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
 
@@ -2094,6 +2415,7 @@ def main(argv=None):
         "build_launches": k1_build_launches,
         "persist_launches": k1_persist,
         "service_launches": k1_service,
+        "shard_launches": shard["gather_dists"],
         "max_abs_err": max_abs,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -2111,6 +2433,7 @@ def main(argv=None):
         "launches": pq_launches,
         "persist_launches": pq_persist,
         "service_launches": pq_service,
+        "shard_launches": shard["pq_decode"],
         "max_abs_err": pq_max_abs,
         "ms": pq["ms"],
         "plain_ms": pq["plain_ms"],
@@ -2127,6 +2450,7 @@ def main(argv=None):
         "build_launches": k4_build_launches,
         "persist_launches": k4_persist,
         "service_launches": k4_service,
+        "shard_launches": shard["hamming_block"],
         "max_abs_err": k4_max_abs,
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],

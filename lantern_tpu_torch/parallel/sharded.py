@@ -1,0 +1,1183 @@
+"""Sharded index on one card (port of lantern_tpu/parallel/sharded.py).
+
+The reference partitions the node set round-robin into S shards, builds one
+HNSW subgraph per shard and stacks the shards' arrays on a leading shard
+axis, which its mesh places one shard per device; a search runs every
+shard's subgraph and merges the [S, Q, k] results once.
+
+Here the S shards are that same leading axis of stacked tensors, on one
+device: ``ShardedIndex.shard(si)`` is a ``DeviceGraph`` of views of slice
+``si`` (contiguous, no copy), and every per-shard step of the reference's
+vmap is a loop over those views through the port's single-graph functions:
+
+- search: ``graph/search.py::search_batched`` per shard (K1 for f32/bf16
+  rows, the decode kernel in PQ shards' entry scans, K4 in hamming shards'
+  entry scans), local ids mapped to global ids through ``global_ids``, then
+  one merge by a stable sort of the [Q, S*k] block (``jax.lax.top_k`` puts
+  the lower index first among equal values; so does a stable sort);
+- flat scans: ``flat.py::flat_search_graph`` / ``flat_search_graph_rerank``
+  per shard (the decode kernel for PQ shards, K4 for hamming shards);
+- the device build and inserts: ``graph/build_device.py::_insert_round``
+  per shard, round by round, over per-shard ``BuildState`` views of the
+  stacked tables. Shards are independent, so their order inside a round
+  does not change the result;
+- the host plan (round-robin partition, level draws from one generator in
+  shard order, the UPPER_POOL_CAP subsample, per-level id lists padded to
+  a common size, ramped rounds with -1 lanes for shorter shards) is the
+  reference's, so both packages build the same graphs.
+
+Per-shard ``entry``, ``max_level`` and ``num_nodes`` are host ints, so a
+search never reads them from the device. A PQ index keeps one codebook and
+rotation (the reference tiles the same codebook S times).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import torch
+
+from lantern_tpu_torch import resolve_device
+from lantern_tpu_torch.config import HnswParams, Metric, QuantKind
+from lantern_tpu_torch.graph.device import (
+    QUANT_PQ,
+    DeviceGraph,
+    _sq_norms_np,
+    upper_ids_from_slots,
+)
+from lantern_tpu_torch.native import LMAX
+
+_INF = float("inf")
+# levels with more nodes than this are subsampled for the upper pools (the
+# reference's sharded build and insert, as build_on_device)
+UPPER_POOL_CAP = 32768
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The (data, shard) layout: ``shape == {"data": 1, "shard": S}`` and
+    the one device that holds every shard."""
+
+    shape: dict
+    device: torch.device
+
+
+def make_mesh(n_shards: int | None = None, data: int = 1,
+              device: str | torch.device | None = None) -> Mesh:
+    """The layout of S shards on ``device`` (default cuda; raises without a
+    card unless the CPU is named).
+
+    Unlike the reference's mesh (one shard per device, so ``n_shards`` is
+    bounded by the device count), the S shards are a leading tensor axis on
+    one device, so any ``n_shards >= 1`` is allowed. ``n_shards=None`` means
+    one shard per visible card, as in the reference (1 on the CPU).
+    ``data > 1`` (the reference's query split over devices) raises: it
+    comes with placement over several cards.
+    """
+    dev = resolve_device(device)
+    if data != 1:
+        raise ValueError(f"data={data}: the query axis needs several cards; "
+                         "one card holds data=1")
+    if n_shards is None:
+        n_shards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n_shards < 1:
+        raise ValueError(f"n_shards={n_shards}; need at least one shard")
+    return Mesh(shape={"data": 1, "shard": int(n_shards)}, device=dev)
+
+
+@dataclasses.dataclass
+class ShardedIndex:
+    """S subgraphs stacked on a leading shard axis of one device's tensors.
+
+    Fields are a ``DeviceGraph``'s with the axis in front (``vectors [S,
+    cap, ...]``, ``neighbors0 [S, cap+1, m0]``, ``upper_neighbors [S, ucap,
+    LMAX, m]``, ``upper_ids [S, ucap]``, ...), plus ``global_ids [S, cap+1]``
+    int32 (local slot -> global id, -1 at padding), the PQ shards' optional
+    bf16 rerank rows ``[S, cap, d]`` and their f32 ``rerank_sqn [S, cap]``.
+    Padding slots (shards shorter than the longest) are tombstoned.
+    """
+
+    vectors: torch.Tensor
+    sq_norms: torch.Tensor
+    neighbors0: torch.Tensor
+    upper_neighbors: torch.Tensor
+    upper_slot: torch.Tensor
+    levels: torch.Tensor
+    labels: torch.Tensor           # [S, cap] int64 holding the u64 bits
+    deleted: torch.Tensor
+    upper_ids: torch.Tensor | None
+    global_ids: torch.Tensor
+    entry: tuple
+    max_level: tuple
+    num_nodes: tuple
+    vec_scales: torch.Tensor | None = None
+    pq_codebook: torch.Tensor | None = None   # [nsub, K, dsub] f32, one copy
+    pq_rotation: torch.Tensor | None = None   # [d, d] f32
+    rerank_rows: torch.Tensor | None = None
+    rerank_sqn: torch.Tensor | None = None
+    params: HnswParams | None = None
+    m: int = 16
+    dim: int = 0
+    metric: int = int(Metric.L2SQ)
+    quant: int = int(QuantKind.F32)
+
+    @property
+    def n_shards(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def cap(self) -> int:
+        return self.vectors.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vectors.device
+
+    def shard(self, si: int) -> DeviceGraph:
+        """Shard ``si`` as a DeviceGraph of views (no copy)."""
+        return DeviceGraph(
+            vectors=self.vectors[si],
+            sq_norms=self.sq_norms[si],
+            neighbors0=self.neighbors0[si],
+            upper_neighbors=self.upper_neighbors[si],
+            upper_slot=self.upper_slot[si],
+            levels=self.levels[si],
+            labels=self.labels[si],
+            deleted=self.deleted[si],
+            entry=self.entry[si],
+            max_level=self.max_level[si],
+            num_nodes=self.num_nodes[si],
+            upper_ids=None if self.upper_ids is None else self.upper_ids[si],
+            vec_scales=None if self.vec_scales is None else self.vec_scales[si],
+            pq_codebook=self.pq_codebook,
+            pq_rotation=self.pq_rotation,
+            m=self.m,
+            dim=self.dim,
+            metric=self.metric,
+            quant=self.quant,
+        )
+
+
+def _t(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """numpy -> tensor on ``dev``; uint64 and uint32 arrays keep their bits
+    as int64 / int32."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint64:
+        a = a.view(np.int64)
+    elif a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(dev)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor's values on the host (every device -> host read of
+    this module goes through here)."""
+    return t.cpu().numpy()
+
+
+def _check_mesh(index: ShardedIndex, mesh: Mesh) -> None:
+    if mesh.shape["shard"] != index.n_shards:
+        raise ValueError(f"index has {index.n_shards} shards but mesh shard "
+                         f"axis is {mesh.shape['shard']}")
+
+
+def build_sharded(
+    vectors: np.ndarray,
+    params: HnswParams,
+    mesh: Mesh,
+    labels: np.ndarray | None = None,
+    seed: int = 0,
+    use_native: bool = True,
+    nthreads: int = 0,
+) -> ShardedIndex:
+    """Partition ``vectors`` round-robin over the shards, build one host
+    subgraph per shard (shard ``si`` with seed ``seed + si``), then stack
+    them on the mesh's device."""
+    n = len(vectors)
+    s = mesh.shape["shard"]
+    if n < s:
+        raise ValueError(f"need at least one vector per shard ({n} < {s})")
+    if labels is None:
+        labels = np.arange(n, dtype=np.uint64)
+    labels = np.asarray(labels, np.uint64)
+    if use_native:
+        from lantern_tpu_torch.native import NativeHnsw as Engine
+    else:
+        from lantern_tpu_torch.graph.host_build import HostHnsw as Engine
+
+    shards, gids = [], []
+    for si in range(s):
+        idx = np.arange(si, n, s)
+        eng = Engine(params, capacity=len(idx), seed=seed + si)
+        kw = {"nthreads": nthreads} if use_native else {}
+        eng.add(vectors[idx], labels=labels[idx], **kw)
+        shards.append(eng)
+        gids.append(idx.astype(np.int32))
+    return _stack_engines(shards, gids, params, mesh)
+
+
+def _stack_engines(shards, gids, params: HnswParams, mesh: Mesh) -> ShardedIndex:
+    """Stack per-shard host engines at a common padded capacity (padding
+    slots tombstoned, global id -1)."""
+    metric = Metric(params.metric)
+    max_n = max(eng.n for eng in shards)
+    max_u = max(max(eng.n_upper, 1) for eng in shards)
+    width = shards[0].vectors.shape[1]
+    s = len(shards)
+    vec_np = np.zeros((s, max_n, width), shards[0].vectors.dtype)
+    sqn_np = np.zeros((s, max_n), np.float32)
+    nbr_np = np.full((s, max_n + 1, params.m0), -1, np.int32)
+    upn_np = np.full((s, max_u, LMAX, params.m), -1, np.int32)
+    slt_np = np.full((s, max_n), -1, np.int32)
+    lvl_np = np.zeros((s, max_n), np.int32)
+    lab_np = np.zeros((s, max_n), np.uint64)
+    del_np = np.zeros((s, max_n), bool)
+    gid_np = np.full((s, max_n + 1), -1, np.int32)
+    uid_np = np.full((s, max_u), -1, np.int32)
+    for si, eng in enumerate(shards):
+        ni = eng.n
+        vec_np[si, :ni] = eng.vectors[:ni]
+        sqn_np[si, :ni] = _sq_norms_np(eng.vectors[:ni], metric)
+        nbr_np[si, :ni] = eng.neighbors0[:ni]
+        nu = max(eng.n_upper, 1)
+        upn_np[si, :nu] = eng.upper_neighbors[:nu]
+        slt_np[si, :ni] = eng.upper_slot[:ni]
+        uid_np[si] = upper_ids_from_slots(eng.upper_slot[:ni], max_u)
+        lvl_np[si, :ni] = eng.levels[:ni]
+        lab_np[si, :ni] = eng.labels[:ni]
+        del_np[si, :ni] = eng.deleted[:ni]
+        del_np[si, ni:] = True
+        gid_np[si, :ni] = gids[si][:ni]
+    dev = mesh.device
+    return ShardedIndex(
+        vectors=_t(vec_np, dev),
+        sq_norms=_t(sqn_np, dev),
+        neighbors0=_t(nbr_np, dev),
+        upper_neighbors=_t(upn_np, dev),
+        upper_slot=_t(slt_np, dev),
+        levels=_t(lvl_np, dev),
+        labels=_t(lab_np, dev),
+        deleted=_t(del_np, dev),
+        upper_ids=_t(uid_np, dev),
+        global_ids=_t(gid_np, dev),
+        entry=tuple(int(eng.entry) for eng in shards),
+        max_level=tuple(int(eng.max_level) for eng in shards),
+        num_nodes=tuple(int(eng.n) for eng in shards),
+        params=params,
+        m=params.m,
+        dim=params.dim,
+        metric=int(metric),
+    )
+
+
+def _queries(index: ShardedIndex, queries) -> torch.Tensor:
+    """Queries on the index's device: f32 rows, or int32 words for hamming
+    (numpy uint32 words keep their bits)."""
+    if isinstance(queries, np.ndarray):
+        queries = _t(queries, index.device)
+    if Metric(index.metric) == Metric.HAMMING:
+        return queries.to(index.device).contiguous()
+    return queries.to(index.device, torch.float32).contiguous()
+
+
+def _to_global(index: ShardedIndex, si: int, ids: torch.Tensor) -> torch.Tensor:
+    gids = index.global_ids[si]
+    safe = torch.clamp(ids, 0, gids.shape[0] - 1).long()
+    return torch.where(ids >= 0, gids[safe], -1)
+
+
+def _per_shard(index: ShardedIndex, exclude_gids, local):
+    """Run ``local(si, graph, exclude_row)`` -> (d, ids, labels) [Q, k] on
+    every shard; returns the stacked (d, global ids, labels) [S, Q, k]."""
+    excl = _as_local_masks(index, exclude_gids)
+    ds, gs, ls = [], [], []
+    for si in range(index.n_shards):
+        d, ids, lab = local(si, index.shard(si),
+                            None if excl is None else excl[si])
+        ds.append(d)
+        gs.append(_to_global(index, si, ids))
+        ls.append(lab)
+    return torch.stack(ds), torch.stack(gs), torch.stack(ls)
+
+
+def search_sharded(
+    index: ShardedIndex,
+    queries,
+    k: int = 10,
+    ef: int = 64,
+    expand: int = 1,
+    max_iters: int | None = None,
+    exclude_gids: torch.Tensor | None = None,
+):
+    """Every shard searches its subgraph, then one global top-k merge.
+
+    queries [Q, d] (int32 or uint32 words for hamming) -> (dists [Q, k] f32,
+    global ids [Q, k] int32, labels [Q, k] int64).
+
+    ``exclude_gids``: a [n_global] bool mask indexed by global id, or the
+    [S, cap] per-shard masks of :func:`local_exclude_masks` (precompute
+    those once when one filter serves many searches).
+    """
+    from lantern_tpu_torch.graph.search import search_batched
+
+    q = _queries(index, queries)
+
+    def local(si, graph, excl_row):
+        return search_batched(graph, q, k=k, ef=ef, expand=expand,
+                              max_iters=max_iters, exclude=excl_row)
+
+    return _merge_topk(*_per_shard(index, exclude_gids, local), k)
+
+
+def local_exclude_masks(index: ShardedIndex, exclude_gids) -> torch.Tensor:
+    """A [n_global] bool global-id mask -> [S, cap] local node masks.
+
+    Blank gid slots are always excluded (they hold no node); gids at or
+    beyond the mask's length are NOT excluded (a shorter, stale mask
+    leaves newer inserts unfiltered rather than mapping them onto its last
+    entry).
+    """
+    mask = torch.as_tensor(exclude_gids, device=index.device).bool()
+    g = index.global_ids[:, :index.cap]
+    n_mask = mask.shape[0]
+    if n_mask == 0:
+        return g < 0
+    covered = (g >= 0) & (g < n_mask)
+    return (g < 0) | (covered & mask[torch.clamp(g, 0, n_mask - 1).long()])
+
+
+def _as_local_masks(index: ShardedIndex, exclude_gids):
+    """None | [n_global] | [S, cap] -> None | [S, cap] local masks."""
+    if exclude_gids is None:
+        return None
+    exclude_gids = torch.as_tensor(exclude_gids, device=index.device).bool()
+    if exclude_gids.dim() == 2:
+        return exclude_gids
+    return local_exclude_masks(index, exclude_gids)
+
+
+def _merge_topk(d, gid, labels, k: int):
+    """[S, Q, k] per-shard results -> [Q, k] global top-k.
+
+    A stable ascending sort of the [Q, S*k] block, so among equal distances
+    the lower column (shard-major order) comes first, as ``jax.lax.top_k``
+    orders them; hamming distances tie as a rule.
+    """
+    s, q, kk = d.shape
+    d2 = d.permute(1, 0, 2).reshape(q, s * kk)
+    gid2 = gid.permute(1, 0, 2).reshape(q, s * kk)
+    lab2 = labels.permute(1, 0, 2).reshape(q, s * kk)
+    sd, arg = torch.sort(torch.where(gid2 >= 0, d2, _INF), dim=1, stable=True)
+    out_d, arg = sd[:, :k], arg[:, :k]
+    out_gid = torch.where(torch.isfinite(out_d), torch.gather(gid2, 1, arg), -1)
+    out_lab = torch.where(out_gid >= 0, torch.gather(lab2, 1, arg), 0)
+    return out_d, out_gid.to(torch.int32), out_lab
+
+
+def flat_search_sharded(
+    index: ShardedIndex,
+    queries,
+    k: int = 10,
+    exact: bool = False,
+    recall_target: float = 0.95,
+    exclude_gids: torch.Tensor | None = None,
+):
+    """Every shard scans its stored table (``flat_search_graph``: the
+    decode kernel for PQ shards, K4 for hamming shards), one top-k merge.
+
+    Exact per-shard top-k composes to the exact global top-k.
+    ``recall_target`` is accepted for the reference's signature and unused:
+    the port's top-k is exact.
+    """
+    from lantern_tpu_torch.flat import flat_search_graph
+
+    del recall_target
+    q = _queries(index, queries)
+
+    def local(si, graph, excl_row):
+        return flat_search_graph(graph, q, k=k, exact=exact, exclude=excl_row)
+
+    return _merge_topk(*_per_shard(index, exclude_gids, local), k)
+
+
+def flat_search_sharded_rerank(
+    index: ShardedIndex,
+    queries,
+    k: int = 10,
+    shortlist: int = 100,
+    recall_target: float = 0.95,
+    exclude_gids: torch.Tensor | None = None,
+):
+    """Per-shard ADC shortlist plus an exact re-score against each shard's
+    bf16 row copy (``flat_search_graph_rerank``), then one top-k merge.
+    Needs a PQ index quantised with ``keep_rerank=True``."""
+    from lantern_tpu_torch.flat import flat_search_graph_rerank
+
+    del recall_target
+    if index.rerank_rows is None:
+        raise ValueError(
+            "flat_search_sharded_rerank needs rerank rows — quantize with "
+            "keep_rerank=True"
+        )
+    q = _queries(index, queries)
+
+    def local(si, graph, excl_row):
+        return flat_search_graph_rerank(graph, index.rerank_rows[si], q, k=k,
+                                        shortlist=shortlist, exclude=excl_row)
+
+    return _merge_topk(*_per_shard(index, exclude_gids, local), k)
+
+
+def quantize_sharded(
+    index: ShardedIndex,
+    mesh: Mesh,
+    quant: str = "pq",
+    codebook=None,
+    train_rows: int = 65536,
+    keep_rerank: bool = True,
+    seed: int = 0,
+) -> ShardedIndex:
+    """Re-encode a built f32/bf16 index's rows as PQ codes or i8.
+
+    - ``quant="pq"``: train (``rotate=True``, on a row sample taken evenly
+      across the shards) or take a ``quant.pq.PQCodebook``, and store uint8
+      codes ``[S, cap, nsub]``; ``keep_rerank=True`` keeps a bf16 copy of
+      the rows and their f32 squared norms for
+      :func:`flat_search_sharded_rerank`.
+    - ``quant="i8"``: symmetric per-row int8 codes and f32 scales.
+
+    The encode runs on the device; only the training sample goes to the
+    host.
+    """
+    from lantern_tpu_torch.graph.build_device import _pq_encode_rows
+
+    _check_mesh(index, mesh)
+    metric = Metric(index.metric)
+    if metric == Metric.HAMMING:
+        raise ValueError("hamming shards are already bit-packed; no PQ/i8")
+    if index.quant not in (int(QuantKind.F32), int(QuantKind.F16)):
+        raise ValueError("index is already quantized")
+    s, cap, dim = index.vectors.shape
+    dev = index.device
+    p = index.params
+
+    if quant == "pq":
+        from lantern_tpu_torch.quant.pq import train_codebook
+
+        if codebook is None:
+            per = max(1, min(cap, train_rows // s))
+            block = _host(index.vectors[:, :per].float())
+            sample = np.concatenate(
+                [block[si, :max(1, min(per, index.num_nodes[si]))]
+                 for si in range(s)])
+            nsub = (p.effective_num_subvectors if p is not None
+                    else max(1, dim // 4))
+            ncent = p.num_centroids if p is not None else 256
+            codebook = train_codebook(sample, num_subvectors=nsub,
+                                      num_centroids=min(ncent, 256),
+                                      seed=seed, rotate=True, device=dev)
+        cent = torch.from_numpy(np.array(codebook.centroids, np.float32)).to(dev)
+        rot = (None if codebook.rotation is None else
+               torch.from_numpy(np.array(codebook.rotation, np.float32)).to(dev))
+        codes = torch.stack([_pq_encode_rows(index.vectors[si].float(), cent, rot)
+                             for si in range(s)])
+        new_params = (dataclasses.replace(
+            p, pq=True, num_subvectors=codebook.num_subvectors,
+            num_centroids=codebook.num_centroids) if p is not None else None)
+        return dataclasses.replace(
+            index, vectors=codes, vec_scales=None, pq_codebook=cent,
+            pq_rotation=rot, quant=QUANT_PQ, params=new_params,
+            rerank_rows=(index.vectors.to(torch.bfloat16) if keep_rerank
+                         else None),
+            rerank_sqn=index.sq_norms if keep_rerank else None,
+        )
+
+    if quant == "i8":
+        from lantern_tpu_torch.quant.scalar import quantize_i8
+
+        codes, scales = quantize_i8(index.vectors.float())
+        new_params = (dataclasses.replace(p, quant=QuantKind.I8)
+                      if p is not None else None)
+        return dataclasses.replace(index, vectors=codes, vec_scales=scales,
+                                   quant=int(QuantKind.I8), params=new_params,
+                                   rerank_rows=None, rerank_sqn=None)
+
+    raise ValueError(f"quant={quant!r}; expected 'pq' or 'i8'")
+
+
+def _level_arrays(lvl: np.ndarray, counts, rng) -> list[np.ndarray]:
+    """Per-level id lists of every shard (level_arrays[l-1][si] = the ids of
+    shard si with level >= l, counted over its first counts[si] slots),
+    levels above UPPER_POOL_CAP nodes subsampled from ``rng`` in shard
+    order, -1 padded to one power of two (at least 8) per level."""
+    s = lvl.shape[0]
+    top = max((int(lvl[si, :counts[si]].max(initial=0)) for si in range(s)),
+              default=0)
+    out = []
+    for level in range(1, top + 1):
+        per_shard = []
+        for si in range(s):
+            lids = np.nonzero(lvl[si, :counts[si]] >= level)[0].astype(np.int32)
+            if len(lids) > UPPER_POOL_CAP:
+                lids = np.sort(rng.choice(lids, UPPER_POOL_CAP, replace=False))
+            per_shard.append(lids)
+        longest = max(max(len(x) for x in per_shard), 1)
+        size = max(8, 1 << int(np.ceil(np.log2(longest))))
+        arr = np.full((s, size), -1, np.int32)
+        for si in range(s):
+            arr[si, :len(per_shard[si])] = per_shard[si]
+        out.append(arr)
+    return out
+
+
+def _shard_states(tables: dict, host_levels: np.ndarray, entry, max_level,
+                  n, m: int, dim: int, metric: Metric, level_arrays):
+    """Per-shard BuildStates over views of the stacked tables, with their
+    level id lists and level row tables on the device."""
+    from lantern_tpu_torch.graph.build_device import BuildState, _level_tables
+
+    dev = tables["vectors"].device
+    out = []
+    for si in range(tables["vectors"].shape[0]):
+        st = BuildState(
+            vectors=tables["vectors"][si],
+            sq_norms=tables["sq_norms"][si],
+            neighbors0=tables["neighbors0"][si],
+            upper_neighbors=tables["upper_neighbors"][si],
+            upper_slot=tables["upper_slot"][si],
+            levels=tables["levels"][si],
+            host_levels=host_levels[si],
+            entry=int(entry[si]),
+            max_level=int(max_level[si]),
+            n=int(n[si]),
+            m=m,
+            dim=dim,
+            metric=int(metric),
+        )
+        lids = tuple(torch.from_numpy(a[si].copy()).to(dev) for a in level_arrays)
+        out.append((st, lids, _level_tables(st.vectors, lids, metric)))
+    return out
+
+
+def _run_rounds(states, rounds, efc: int, max_in: int, flat_for_round):
+    """Insert rounds (``rounds``: (pos, ids [S, size] numpy) in order) into
+    every shard's state in place; a shard whose lanes are all -1 in a round
+    is skipped (its round would only rewrite the dummy rows)."""
+    from lantern_tpu_torch.graph.build_device import _insert_round
+
+    dev = states[0][0].vectors.device
+    for pos, ids in rounds:
+        ids_dev = torch.from_numpy(ids).to(dev)
+        flat = flat_for_round(pos)
+        for si, (st, lids, lvecs) in enumerate(states):
+            if ids[si, 0] < 0:
+                continue
+            _insert_round(st, ids[si], lids, lvecs, ids_dev[si], efc, max_in,
+                          flat)
+
+
+def build_sharded_device(
+    vectors: np.ndarray,
+    params: HnswParams,
+    mesh: Mesh,
+    batch: int = 256,
+    seed: int = 0,
+    labels: np.ndarray | None = None,
+    max_in: int | None = None,
+    candidates: str = "flat",
+    store: str = "f32",
+    flat_until: int | None = None,
+) -> ShardedIndex:
+    """Build every shard's subgraph on the device by the insert rounds of
+    ``graph/build_device.py``, each round run over every shard.
+
+    ``candidates``: "flat" (default) pools from a masked flat scan of each
+    shard's built prefix; "beam" from a beam search of the partial
+    subgraph; "hybrid" flat for the rounds that start before ``flat_until``
+    (default 2,000,000) built nodes, beam after. ``store``: "f32" or "bf16"
+    tables (l2sq / cos; the squared norms come from the f32 rows). Hamming
+    builds take packed uint32 words.
+    """
+    from lantern_tpu_torch.graph.build_device import _check_candidates, ramped_batches
+
+    flat_until = _check_candidates(candidates, flat_until)
+    if store not in ("f32", "bf16"):
+        raise ValueError(f"store={store!r}; expected f32|bf16")
+    metric = Metric(params.metric)
+    np_dtype = np.uint32 if metric == Metric.HAMMING else np.float32
+    vectors = np.ascontiguousarray(vectors, np_dtype)
+    n, dim = vectors.shape
+    s = mesh.shape["shard"]
+    if n < s:
+        raise ValueError(f"need at least one vector per shard ({n} < {s})")
+    m = params.m
+    max_in = max_in or max(4, m // 2)
+    if labels is None:
+        labels = np.arange(n, dtype=np.uint64)
+    labels = np.asarray(labels, np.uint64)
+    dev = mesh.device
+
+    part = [np.arange(si, n, s) for si in range(s)]
+    counts = [len(pp) for pp in part]
+    nmax = max(counts)
+    batch = min(batch, nmax)
+
+    rng = np.random.default_rng(seed)
+    lvl_np = np.zeros((s, nmax), np.int32)
+    slot_np = np.full((s, nmax), -1, np.int32)
+    vec_np = np.zeros((s, nmax, dim), np_dtype)
+    gid_np = np.full((s, nmax + 1), -1, np.int32)
+    lab_np = np.zeros((s, nmax), np.uint64)
+    n_upper_max = 1
+    for si, ids in enumerate(part):
+        ni = len(ids)
+        vec_np[si, :ni] = vectors[ids]
+        gid_np[si, :ni] = ids
+        lab_np[si, :ni] = labels[ids]
+        u = np.maximum(rng.random(ni), 1e-300)
+        lv = np.minimum((-np.log(u) * params.level_lambda).astype(np.int64), LMAX)
+        lvl_np[si, :ni] = lv
+        has = lv >= 1
+        slot_np[si, :ni][has] = np.arange(int(has.sum()), dtype=np.int32)
+        n_upper_max = max(n_upper_max, int(has.sum()))
+    ucap = n_upper_max + 1  # + dummy slot
+    level_arrays = _level_arrays(lvl_np, [nmax] * s, rng)
+
+    if metric == Metric.HAMMING:
+        sq = np.zeros((s, nmax), np.float32)  # unused by hamming distances
+    else:
+        sq = np.einsum("snd,snd->sn", vec_np, vec_np).astype(np.float32)
+    first = next(ramped_batches(nmax, batch))[1]
+    entry0 = [int(np.argmax(lvl_np[si, :min(first, counts[si])])) for si in range(s)]
+    maxl0 = [int(lvl_np[si, :min(first, counts[si])].max()) for si in range(s)]
+    vec_t = _t(vec_np, torch.device("cpu"))
+    if store == "bf16" and metric != Metric.HAMMING:
+        # rounded on the host, so the device never holds the f32 table
+        vec_t = vec_t.to(torch.bfloat16)
+    tables = {
+        "vectors": vec_t.to(dev),
+        "sq_norms": _t(sq, dev),
+        "neighbors0": torch.full((s, nmax + 1, 2 * m), -1, dtype=torch.int32,
+                                 device=dev),
+        "upper_neighbors": torch.full((s, ucap, LMAX, m), -1, dtype=torch.int32,
+                                      device=dev),
+        "upper_slot": _t(slot_np, dev),
+        "levels": _t(lvl_np, dev),
+    }
+    del vec_t
+    states = _shard_states(tables, lvl_np, entry0, maxl0, [0] * s, m,
+                           params.dim, metric, level_arrays)
+
+    def rounds():
+        for pos, live, size in ramped_batches(nmax, batch):
+            ids = np.full((s, size), -1, np.int32)
+            for si in range(s):
+                hi = min(pos + live, counts[si])
+                if hi > pos:
+                    ids[si, :hi - pos] = np.arange(pos, hi, dtype=np.int32)
+            yield pos, ids
+
+    _run_rounds(states, rounds(), params.ef_construction, max_in,
+                lambda pos: candidates == "flat"
+                or (candidates == "hybrid" and pos < flat_until))
+
+    return ShardedIndex(
+        **tables,
+        labels=_t(lab_np, dev),
+        deleted=_t(gid_np[:, :nmax] < 0, dev),  # padding slots tombstoned
+        upper_ids=_t(np.stack([upper_ids_from_slots(slot_np[si], ucap)
+                               for si in range(s)]), dev),
+        global_ids=_t(gid_np, dev),
+        entry=tuple(st.entry for st, _, _ in states),
+        max_level=tuple(st.max_level for st, _, _ in states),
+        num_nodes=tuple(counts),
+        params=params,
+        m=m,
+        dim=params.dim,
+        metric=int(metric),
+        quant=int(QuantKind.F16 if tables["vectors"].dtype == torch.bfloat16
+                  else QuantKind.F32),
+    )
+
+
+# ---- lifecycle: save / load / insert / delete / compact -------------------
+# A sharded index persists as one standard snapshot per shard plus a
+# manifest, so every shard file loads in the single-index tooling of
+# either package.
+
+
+class _ShardView:
+    """One shard's arrays on the host, shaped like an engine (for
+    ``save_snapshot`` and ``compact_sharded``).
+
+    Quantised shards are viewed through their SOURCE rows: the bf16 rerank
+    copy (PQ with keep_rerank), the decoded centroids (PQ without) or the
+    dequantised f32 rows (i8). bf16 rows stay a CPU bf16 tensor, which the
+    snapshot writer tags "bfloat16" as the reference's files do."""
+
+    def __init__(self, index: ShardedIndex, si: int):
+        from lantern_tpu_torch.quant.scalar import dequantize_i8
+
+        self.p = index.params
+        self.n = index.num_nodes[si]
+        self.entry = index.entry[si]
+        self.max_level = index.max_level[si]
+        if index.quant == QUANT_PQ:
+            if index.rerank_rows is not None:
+                self.vectors = index.rerank_rows[si].cpu()
+            else:
+                from lantern_tpu_torch.quant.pq import pq_decode
+
+                self.vectors = pq_decode(_host(index.vectors[si]),
+                                         _sharded_codebook(index))
+        elif index.quant == int(QuantKind.I8):
+            self.vectors = _host(dequantize_i8(index.vectors[si],
+                                               index.vec_scales[si]))
+        elif index.vectors.dtype == torch.bfloat16:
+            self.vectors = index.vectors[si].cpu()
+        elif Metric(index.metric) == Metric.HAMMING:
+            self.vectors = _host(index.vectors[si]).view(np.uint32)
+        else:
+            self.vectors = _host(index.vectors[si])
+        self.neighbors0 = _host(index.neighbors0[si])
+        self.counts0 = (self.neighbors0 >= 0).sum(1).astype(np.int32)
+        self.upper_neighbors = _host(index.upper_neighbors[si])
+        self.upper_counts = (self.upper_neighbors >= 0).sum(-1).astype(np.int32)
+        self.upper_slot = _host(index.upper_slot[si])
+        used = self.upper_slot[:self.n]
+        used = used[used >= 0]
+        self.n_upper = int(used.max()) + 1 if used.size else 0
+        self.levels = _host(index.levels[si])
+        self.labels = _host(index.labels[si]).view(np.uint64)
+        self.deleted = _host(index.deleted[si])
+
+
+def _sharded_codebook(index: ShardedIndex):
+    """The index's PQCodebook (numpy, from its device copy), or None."""
+    if index.pq_codebook is None:
+        return None
+    from lantern_tpu_torch.quant.pq import PQCodebook
+
+    return PQCodebook(
+        centroids=_host(index.pq_codebook),
+        rotation=None if index.pq_rotation is None else _host(index.pq_rotation),
+    )
+
+
+def _quant_kind(index: ShardedIndex) -> str | None:
+    if index.quant == QUANT_PQ:
+        return "pq"
+    if index.quant == int(QuantKind.I8):
+        return "i8"
+    return None
+
+
+def save_sharded(index: ShardedIndex, dir_path: str):
+    """Persist: ``manifest.json`` (version 2, renamed into place last) plus
+    ``shard_<i>.ldb`` (standard snapshots) and ``shard_<i>.gids.npy`` (local
+    slot -> global id) per shard. Quantised indexes save their source rows
+    and the codebook in every shard file; the manifest records the quant
+    kind, and ``load_sharded`` encodes again."""
+    from lantern_tpu_torch.storage.snapshot import save_snapshot
+
+    if index.params is None:
+        raise ValueError("ShardedIndex has no params; cannot save")
+    os.makedirs(dir_path, exist_ok=True)
+    s = index.n_shards
+    gids = _host(index.global_ids)
+    codebook = _sharded_codebook(index)
+    for si in range(s):
+        save_snapshot(_ShardView(index, si),
+                      os.path.join(dir_path, f"shard_{si}.ldb"),
+                      pq_codebook=codebook)
+        np.save(os.path.join(dir_path, f"shard_{si}.gids.npy"), gids[si])
+    manifest = {"version": 2, "n_shards": s,
+                "dim": index.params.dim, "m": index.params.m,
+                "metric": int(index.params.metric),
+                "quant": _quant_kind(index),
+                "keep_rerank": index.rerank_rows is not None}
+    tmp = os.path.join(dir_path, "manifest.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f)
+    os.replace(tmp, os.path.join(dir_path, "manifest.json"))
+
+
+def load_sharded(dir_path: str, mesh: Mesh, engine: str = "native") -> ShardedIndex:
+    """Load a ``save_sharded`` directory onto the mesh's device (its shard
+    count must equal the mesh's); quantised shards are encoded again from
+    their saved source rows with the saved codebook."""
+    from lantern_tpu_torch.storage.snapshot import load_snapshot
+
+    with open(os.path.join(dir_path, "manifest.json")) as f:
+        manifest = json.load(f)
+    s = manifest["n_shards"]
+    if mesh.shape["shard"] != s:
+        raise ValueError(f"snapshot has {s} shards but mesh shard axis is "
+                         f"{mesh.shape['shard']}")
+    shards, gids = [], []
+    params = codebook = None
+    for si in range(s):
+        eng, cb = load_snapshot(os.path.join(dir_path, f"shard_{si}.ldb"),
+                                engine=engine, return_codebook=True)
+        params = eng.p
+        codebook = codebook or cb
+        g = np.load(os.path.join(dir_path, f"shard_{si}.gids.npy"))
+        shards.append(eng)
+        gids.append(g[g >= 0][:eng.n])
+    quant_kind = manifest.get("quant")
+    if quant_kind == "pq":
+        ix = _stack_engines(shards, gids, dataclasses.replace(params, pq=False),
+                            mesh)
+        return quantize_sharded(ix, mesh, quant="pq", codebook=codebook,
+                                keep_rerank=manifest.get("keep_rerank", True))
+    if quant_kind == "i8":
+        ix = _stack_engines(shards, gids,
+                            dataclasses.replace(params, quant=QuantKind.F32), mesh)
+        return quantize_sharded(ix, mesh, quant="i8")
+    return _stack_engines(shards, gids, params, mesh)
+
+
+def _unstack_shard(index: ShardedIndex, si: int) -> DeviceGraph:
+    """Shard ``si`` as a standalone DeviceGraph (its own copies)."""
+    view = index.shard(si)
+    return dataclasses.replace(view, **{
+        f.name: getattr(view, f.name).clone()
+        for f in dataclasses.fields(view)
+        if isinstance(getattr(view, f.name), torch.Tensor)
+    })
+
+
+def _grown(t: torch.Tensor, rows: int, fill) -> torch.Tensor:
+    """A new [S, rows, ...] tensor: ``t`` ([S, r, ...], r <= rows) with rows
+    appended, set to ``fill``."""
+    extra = rows - t.shape[1]
+    if extra <= 0:
+        return t.clone()
+    return torch.cat([t, t.new_full((t.shape[0], extra) + t.shape[2:], fill)], 1)
+
+
+def _put_blocks(t: torch.Tensor, starts, block: torch.Tensor) -> None:
+    """t[si, starts[si]:starts[si] + B] = block[si] for every shard."""
+    b = block.shape[1]
+    for si, st in enumerate(starts):
+        t[si, st:st + b] = block[si]
+
+
+def insert_sharded(
+    index: ShardedIndex,
+    vectors: np.ndarray,
+    mesh: Mesh,
+    labels: np.ndarray | None = None,
+    batch: int = 256,
+    seed: int = 0,
+    candidates: str = "flat",
+    flat_until: int = 2_000_000,
+) -> ShardedIndex:
+    """Insert new rows, each into its round-robin owner shard (global id
+    ``gid % S``, the build's partition), by the same rounds as
+    :func:`build_sharded_device`; ``index`` is left as it is.
+
+    The tables grow (capacity and upper capacity doubling as needed) and
+    take the new rows on the device: the vector and adjacency tensors never
+    go to the host. The host reads only per-node metadata (levels, 4 bytes
+    a row) and per-shard counts to plan the rounds. Levels come from
+    ``default_rng(seed + total nodes)``. PQ shards run the rounds over their
+    decoded rows, the new rows snapped to their centroids first, and are
+    encoded again (old codes come back unchanged; the rerank copy takes the
+    new rows as given); i8 shards over their dequantised rows; bf16 tables
+    stay bf16; hamming (b1) shards over their words.
+    """
+    from lantern_tpu_torch.graph.build_device import _pq_decode_rows, _pq_encode_rows
+
+    if index.params is None:
+        raise ValueError("ShardedIndex has no params; cannot insert")
+    if index.upper_ids is None:
+        raise ValueError("insert_sharded requires upper_ids (every "
+                         "lantern_tpu_torch constructor sets them)")
+    _check_mesh(index, mesh)
+    params = index.params
+    metric = Metric(index.metric)
+    quant_mode = _quant_kind(index)
+    if quant_mode is None and index.quant not in (
+            int(QuantKind.F32), int(QuantKind.F16), int(QuantKind.B1)):
+        raise NotImplementedError(
+            f"insert into a quant={index.quant} ShardedIndex is not supported")
+    np_dtype = np.uint32 if metric == Metric.HAMMING else np.float32
+    vectors = np.ascontiguousarray(vectors, np_dtype)
+    b, width = vectors.shape
+    s, cap = index.n_shards, index.cap
+    m = index.m
+    max_in = max(4, m // 2)
+    dev = index.device
+
+    codebook = true_rows = None
+    if quant_mode == "pq":
+        from lantern_tpu_torch.quant.pq import pq_encode
+
+        codebook = _sharded_codebook(index)
+        if codebook.dim != width:
+            raise ValueError("PQ shard codebook missing or dim mismatch")
+        # snapped to their centroids in the ROTATED space: the edges are
+        # built over what will be stored, and encoding them again is exact
+        true_rows = vectors.copy()
+        codes_new = pq_encode(vectors, codebook, device=dev)
+        cb_c = codebook.centroids
+        vectors = cb_c[np.arange(cb_c.shape[0])[None, :], codes_new].reshape(
+            b, width).astype(np.float32)
+
+    # small reads: per-shard upper-slot highwater and the largest global id
+    nn = np.asarray(index.num_nodes, np.int64)
+    nup = np.maximum(_host(index.upper_slot.amax(1)).astype(np.int64) + 1, 0)
+    n_global = int(_host(index.global_ids.max()))
+    new_gids = np.arange(n_global + 1, n_global + 1 + b)
+    labels = (new_gids.astype(np.uint64) if labels is None
+              else np.asarray(labels, np.uint64))
+
+    owner = (new_gids % s).astype(np.int64)
+    b_si = np.bincount(owner, minlength=s)
+    bmax = int(b_si.max())
+    if bmax == 0:
+        return index
+    bpad = max(8, 1 << int(np.ceil(np.log2(bmax))))  # the per-shard block
+    need = nn + b_si
+
+    rng = np.random.default_rng(seed + int(nn.sum()))
+    u = np.maximum(rng.random(b), 1e-300)
+    lv_all = np.minimum((-np.log(u) * params.level_lambda).astype(np.int64),
+                        LMAX).astype(np.int32)
+
+    rows_np = np.zeros((s, bpad, width), np_dtype)
+    sq_np = np.zeros((s, bpad), np.float32)
+    lvl_blk = np.zeros((s, bpad), np.int32)
+    slot_blk = np.full((s, bpad), -1, np.int32)
+    lab_blk = np.zeros((s, bpad), np.uint64)
+    gid_blk = np.full((s, bpad), -1, np.int32)
+    dele_blk = np.ones((s, bpad), bool)  # lanes beyond b_si stay tombstoned
+    add_si = np.zeros(s, np.int64)
+    with_rerank = quant_mode == "pq" and index.rerank_rows is not None
+    if with_rerank:
+        true_blk = np.zeros((s, bpad, width), np.float32)
+        true_sq_blk = np.zeros((s, bpad), np.float32)
+    for si in range(s):
+        mine = owner == si
+        k = int(b_si[si])
+        if k == 0:
+            continue
+        rows_np[si, :k] = vectors[mine]
+        if metric != Metric.HAMMING:
+            vf = rows_np[si, :k].astype(np.float32)
+            sq_np[si, :k] = np.einsum("nd,nd->n", vf, vf)
+        if with_rerank:
+            true_blk[si, :k] = true_rows[mine]
+            true_sq_blk[si, :k] = np.einsum("nd,nd->n", true_blk[si, :k],
+                                            true_blk[si, :k])
+        lvs = lv_all[mine]
+        lvl_blk[si, :k] = lvs
+        has = lvs >= 1
+        add_si[si] = int(has.sum())
+        slot_blk[si, :k][has] = nup[si] + np.arange(add_si[si], dtype=np.int32)
+        lab_blk[si, :k] = labels[mine]
+        gid_blk[si, :k] = new_gids[mine]
+        dele_blk[si, :k] = False
+
+    new_cap = cap
+    while new_cap < int(need.max()) or new_cap < int(nn.max()) + bpad:
+        new_cap = max(8, new_cap * 2)
+    ucap_old = index.upper_neighbors.shape[1]
+    ucap_new = max(ucap_old, int((nup + add_si).max()) + 1)  # +1 dummy
+
+    # metadata for the per-level candidate pools (4 bytes a row)
+    lvl_full = np.zeros((s, new_cap), np.int32)
+    lvl_full[:, :cap] = _host(index.levels)
+    for si in range(s):
+        lvl_full[si, nn[si]:nn[si] + bpad] = lvl_blk[si]
+        lvl_full[si, need[si]:] = 0  # pad lanes past the live set
+    level_arrays = _level_arrays(lvl_full, need, rng)
+
+    # ---- grow and scatter on the device ----
+    if quant_mode == "pq":
+        cb_dev = index.pq_codebook
+        base = torch.stack([_pq_decode_rows(index.vectors[si], cb_dev)
+                            for si in range(s)])
+    elif quant_mode == "i8":
+        base = index.vectors.float() * index.vec_scales[..., None]
+    else:
+        base = index.vectors
+    vec2 = _grown(base, new_cap, 0)
+    _put_blocks(vec2, nn, _t(rows_np, dev).to(vec2.dtype))
+    del base
+    sq2 = _grown(index.sq_norms, new_cap, 0)
+    _put_blocks(sq2, nn, _t(sq_np, dev))
+    # the old dummy row at cap goes; fresh -1 rows and a new dummy follow
+    nbr2 = torch.cat([index.neighbors0[:, :cap],
+                      torch.full((s, new_cap + 1 - cap, 2 * m), -1,
+                                 dtype=torch.int32, device=dev)], 1)
+    # upper adjacency: each shard's real slots only (rows past its count
+    # are blanks or the build's dummy), grown to ucap_new
+    real = (torch.arange(ucap_old, device=dev)[None, :]
+            < _t(nup, dev)[:, None])
+    up2 = _grown(torch.where(real[:, :, None, None], index.upper_neighbors, -1),
+                 ucap_new, -1)
+    uslot2 = _grown(index.upper_slot, new_cap, -1)
+    _put_blocks(uslot2, nn, _t(slot_blk, dev))
+    lvl2 = _grown(index.levels, new_cap, 0)
+    _put_blocks(lvl2, nn, _t(lvl_blk, dev))
+    lab2 = _grown(index.labels, new_cap, 0)
+    _put_blocks(lab2, nn, _t(lab_blk, dev))
+    dele2 = _grown(index.deleted, new_cap, True)
+    _put_blocks(dele2, nn, _t(dele_blk, dev))
+    gid2 = torch.cat([index.global_ids[:, :cap],
+                      torch.full((s, new_cap + 1 - cap), -1, dtype=torch.int32,
+                                 device=dev)], 1)
+    _put_blocks(gid2, nn, _t(gid_blk, dev))
+
+    # ---- the insert rounds ----
+    tables = {"vectors": vec2, "sq_norms": sq2, "neighbors0": nbr2,
+              "upper_neighbors": up2, "upper_slot": uslot2, "levels": lvl2}
+    states = _shard_states(tables, lvl_full, index.entry, index.max_level, nn,
+                           m, index.dim, metric, level_arrays)
+    flat_cand = (candidates == "flat"
+                 or (candidates == "hybrid" and int(nn.min()) < flat_until))
+
+    def rounds():
+        for pos in range(0, bpad, batch):
+            size = min(batch, bpad - pos)
+            ids = np.full((s, size), -1, np.int32)
+            for si in range(s):
+                hi = min(pos + size, int(b_si[si]))
+                if hi > pos:
+                    ids[si, :hi - pos] = nn[si] + np.arange(pos, hi, dtype=np.int32)
+            yield pos, ids
+
+    _run_rounds(states, rounds(), params.ef_construction, max_in,
+                lambda pos: flat_cand)
+
+    # ---- quantised storage restored (exact for the old rows) ----
+    out_vecs, out_scales = vec2, None
+    new_rerank, new_rsqn = index.rerank_rows, index.rerank_sqn
+    if quant_mode == "pq":
+        # rows already live in the rotated space: no rotation here
+        out_vecs = torch.stack([_pq_encode_rows(vec2[si], index.pq_codebook)
+                                for si in range(s)])
+        if with_rerank:
+            new_rerank = _grown(index.rerank_rows, new_cap, 0)
+            _put_blocks(new_rerank, nn, _t(true_blk, dev).to(new_rerank.dtype))
+            new_rsqn = _grown(index.rerank_sqn, new_cap, 0)
+            _put_blocks(new_rsqn, nn, _t(true_sq_blk, dev))
+    elif quant_mode == "i8":
+        from lantern_tpu_torch.quant.scalar import quantize_i8
+
+        out_vecs, out_scales = quantize_i8(vec2)
+
+    old_uids = _host(index.upper_ids)
+    uid_np = np.full((s, ucap_new), -1, np.int32)
+    for si in range(s):
+        uid_np[si, :nup[si]] = old_uids[si, :nup[si]]
+        has = slot_blk[si] >= 0
+        uid_np[si][slot_blk[si][has]] = nn[si] + np.nonzero(has)[0].astype(np.int32)
+    return dataclasses.replace(
+        index, vectors=out_vecs, sq_norms=sq2, neighbors0=nbr2,
+        upper_neighbors=up2, upper_slot=uslot2, levels=lvl2, labels=lab2,
+        deleted=dele2, upper_ids=_t(uid_np, dev), global_ids=gid2,
+        entry=tuple(st.entry for st, _, _ in states),
+        max_level=tuple(st.max_level for st, _, _ in states),
+        num_nodes=tuple(int(x) for x in need), vec_scales=out_scales,
+        rerank_rows=new_rerank, rerank_sqn=new_rsqn,
+    )
+
+
+def delete_sharded(index: ShardedIndex, labels: np.ndarray) -> ShardedIndex:
+    """Tombstone every row of the given labels across all shards (delete.c
+    semantics; a duplicated label tombstones each of its rows).
+
+    Labels are resolved on the host by a sorted search per shard, O((cap +
+    L) log cap) time and 8 bytes a row of label reads."""
+    dead = np.unique(np.asarray(labels, np.uint64).reshape(-1))
+    lab = _host(index.labels).view(np.uint64)
+    old = _host(index.deleted)
+    hit = np.zeros_like(old)
+    for si in range(lab.shape[0]):
+        order = np.argsort(lab[si], kind="stable")
+        slab = lab[si][order]
+        lo = np.searchsorted(slab, dead, side="left")
+        counts = np.searchsorted(slab, dead, side="right") - lo
+        if counts.sum() == 0:
+            continue
+        starts = np.repeat(lo, counts)
+        offs = np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts,
+                                                   counts)
+        hit[si][order[starts + offs]] = True
+    return dataclasses.replace(index,
+                               deleted=_t(np.logical_or(old, hit), index.device))
+
+
+def compact_sharded(
+    index: ShardedIndex,
+    mesh: Mesh,
+    params: HnswParams | None = None,
+    batch: int = 256,
+    seed: int = 0,
+    **kw,
+) -> ShardedIndex:
+    """Rebuild without the tombstoned rows (``Index.compact``'s sharded
+    analog): the live rows, read through their source rows, go through
+    :func:`build_sharded_device` over the mesh's shards; quantised indexes
+    are encoded again with their old codebook. Labels are kept; global ids
+    are assigned anew round-robin over the live rows.
+
+    ``params`` may re-parametrise the graph (dim and metric must match).
+    ``kw`` goes to ``build_sharded_device``.
+    """
+    p = index.params if params is None else params
+    if index.params is not None:
+        for field in ("dim", "metric"):
+            if getattr(p, field) != getattr(index.params, field):
+                raise ValueError(f"compact_sharded cannot change {field}")
+    quant_kind = _quant_kind(index)
+    live_vecs, live_labels = [], []
+    for si in range(index.n_shards):
+        view = _ShardView(index, si)
+        n = view.n
+        alive = ~view.deleted[:n]
+        v = view.vectors[:n]
+        if isinstance(v, torch.Tensor):
+            v = v.float().numpy()  # exact widening; store="bf16" rounds again
+        live_vecs.append(np.asarray(v)[alive])
+        live_labels.append(view.labels[:n][alive])
+    vecs = np.concatenate(live_vecs)
+    labels = np.concatenate(live_labels).astype(np.uint64)
+    base_p = p
+    if quant_kind == "pq":
+        base_p = dataclasses.replace(p, pq=False)
+    elif quant_kind == "i8":
+        base_p = dataclasses.replace(p, quant=QuantKind.F32)
+    out = build_sharded_device(vecs, base_p, mesh, batch=batch, seed=seed,
+                               labels=labels, **kw)
+    if quant_kind is not None:
+        out = quantize_sharded(out, mesh, quant=quant_kind,
+                               codebook=_sharded_codebook(index),
+                               keep_rerank=index.rerank_rows is not None)
+    return out
+
+
+@dataclasses.dataclass
+class ShardedSearchStats:
+    """Static description of a sharded search (for planning and costing)."""
+
+    n_shards: int
+    shard_cap: int
+    collective_bytes_per_batch: int
+
+    @classmethod
+    def of(cls, index: ShardedIndex, q: int, k: int) -> "ShardedSearchStats":
+        s = index.global_ids.shape[0]
+        return cls(
+            n_shards=s,
+            shard_cap=index.global_ids.shape[1] - 1,
+            # [S, Q, k] of f32 distance, i32 id and two u32 label words: the
+            # results the merge reads (one all-gather on the reference's mesh)
+            collective_bytes_per_batch=s * q * k * 16,
+        )

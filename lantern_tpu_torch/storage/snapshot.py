@@ -30,6 +30,7 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 from lantern_tpu_torch.config import HnswParams, Metric, QuantKind
 from lantern_tpu_torch.utils.failpoints import failure_point
@@ -118,21 +119,30 @@ def _read_header(f):
             log_lsn, bool(has_rotation))
 
 
-def _write_arr(f, arr: np.ndarray):
-    arr = np.ascontiguousarray(arr)
-    # ml_dtypes dtypes (the JAX package's bfloat16 tables) stringify as
-    # opaque void ('<V2'), which would silently reinterpret the bytes on
-    # load — tag them by NAME instead
-    if arr.dtype.kind == "V":
-        if arr.dtype.name != "bfloat16":
-            raise ValueError(f"unserializable array dtype {arr.dtype}")
-        tag = "bfloat16"
+def _write_arr(f, arr):
+    """Write a numpy array, or a CPU bf16 tensor (bf16 row tables, which
+    numpy cannot hold without ml_dtypes), tagged "bfloat16" with its 2-byte
+    bits as the JAX package writes its bfloat16 arrays."""
+    if isinstance(arr, torch.Tensor):
+        if arr.dtype != torch.bfloat16:
+            raise ValueError(f"unserializable tensor dtype {arr.dtype}")
+        tag, shape = "bfloat16", tuple(arr.shape)
+        raw = arr.contiguous().view(torch.int16).numpy().astype("<i2").tobytes()
     else:
-        tag = arr.dtype.str
-    meta = f"{tag};{','.join(map(str, arr.shape))}".encode()
+        arr = np.ascontiguousarray(arr)
+        # ml_dtypes dtypes (the JAX package's bfloat16 tables) stringify as
+        # opaque void ('<V2'), which would silently reinterpret the bytes on
+        # load — tag them by NAME instead
+        if arr.dtype.kind == "V":
+            if arr.dtype.name != "bfloat16":
+                raise ValueError(f"unserializable array dtype {arr.dtype}")
+            tag = "bfloat16"
+        else:
+            tag = arr.dtype.str
+        shape, raw = arr.shape, arr.tobytes()
+    meta = f"{tag};{','.join(map(str, shape))}".encode()
     f.write(struct.pack("<I", len(meta)))
     f.write(meta)
-    raw = arr.tobytes()
     f.write(struct.pack("<QI", len(raw), zlib.crc32(raw)))
     f.write(raw)
 

@@ -1,7 +1,8 @@
 """The port stands alone: importing every lantern_tpu_torch module and
 chip_smoke pulls in neither jax, ml_dtypes nor lantern_tpu, and an entry
-point or a service given no device on a machine without CUDA raises
-instead of running on the CPU."""
+point, a service or a sharded layout (``parallel.make_mesh``, which every
+``parallel`` entry point takes its device from) given no device on a
+machine without CUDA raises instead of running on the CPU."""
 
 import pathlib
 import subprocess
@@ -22,7 +23,7 @@ PROBE = textwrap.dedent("""
                  if m.split(".")[0] in ("jax", "jaxlib", "lantern_tpu", "flax",
                                         "ml_dtypes"))
     assert not bad, bad
-    assert len(mods) >= 41, mods
+    assert len(mods) >= 49, mods
     assert {"lantern_tpu_torch.ops.hamming",
             "lantern_tpu_torch.quant.scalar",
             "lantern_tpu_torch.graph.build_device",
@@ -43,7 +44,15 @@ PROBE = textwrap.dedent("""
             "lantern_tpu_torch.service.http_api",
             "lantern_tpu_torch.service.daemon",
             "lantern_tpu_torch.service.bgworkers",
-            "lantern_tpu_torch.cli"} <= set(mods), mods
+            "lantern_tpu_torch.cli",
+            "lantern_tpu_torch.parallel",
+            "lantern_tpu_torch.parallel.sharded",
+            "lantern_tpu_torch.models",
+            "lantern_tpu_torch.text",
+            "lantern_tpu_torch.text.bloom",
+            "lantern_tpu_torch.text.bm25",
+            "lantern_tpu_torch.text.stemmer",
+            "lantern_tpu_torch.utils.bench"} <= set(mods), mods
     import torch
     from lantern_tpu_torch import HnswParams, Index
     if not torch.cuda.is_available():
@@ -55,15 +64,16 @@ PROBE = textwrap.dedent("""
             raise AssertionError("Index without a device ran on the CPU")
         from lantern_tpu_torch.service.http_api import HttpApi
         from lantern_tpu_torch.service.index_server import IndexServer
+        from lantern_tpu_torch.parallel import make_mesh
         for make in (lambda: IndexServer(port=0, status_port=None),
-                     lambda: HttpApi(port=0)):
+                     lambda: HttpApi(port=0), make_mesh):
             try:
                 make()
             except RuntimeError as e:
                 assert "CUDA" in str(e)
             else:
-                raise AssertionError("a service without a device ran on "
-                                     "the CPU")
+                raise AssertionError("a service or a mesh without a "
+                                     "device ran on the CPU")
     print("isolated", len(mods))
 """)
 
