@@ -26,11 +26,12 @@ Phases, each of which exits non-zero on failure:
    host cores, then ``Index.search`` in flat and graph mode (k=10, ef=64,
    8 seeds) on 1024-query batches, held against exact ground truth, then
    one batch of each mode profiled by kernel;
-6. the PQ main path on the same rows: ``Index(HnswParams(dim=128,
-   pq=True))``; ``add`` trains the S=32, K=256 codebook on the batch and
-   builds the host graph over the decoded rows; ``Index.search`` in flat and
-   graph mode, with ``rerank=100`` and ``rerank="auto"`` after one
-   ``calibrate_rerank``, held against the same ground truth, with distance
+6. the PQ main path on the first PQ_PATH_N of the same rows:
+   ``Index(HnswParams(dim=128, pq=True))``; ``add`` trains the S=32, K=256
+   codebook on the batch and builds the host graph over the decoded rows;
+   ``Index.search`` in flat and graph mode, with ``rerank=100`` and
+   ``rerank="auto"`` after one ``calibrate_rerank``, held against an exact
+   scan of those rows, with distance
    checks, recall floors and the decode kernel's launches per batch;
 7. a small OPQ index at ``examples/pq_rerank.py``'s configuration (dim 96,
    24 subspaces, K=64, ``train_pq(rotate=True)``) over 100k rows: flat,
@@ -44,14 +45,14 @@ Phases, each of which exits non-zero on failure:
    ``torch._int_mm``); it fails if K4 reads under 0.95 of its bound;
    ``hamming_exact_topk`` against a top-k of the plain distances;
 9. the hamming main path: ``Index(HnswParams(dim=1024, metric=HAMMING,
-   quant=B1))`` over n clustered 1024-bit rows (4096 random centres, each
-   bit flipped with p = 1/8) given as packed uint32 words, built on all
-   host cores, searched flat and graph (k=10, ef=64, 8 seeds) on 1024-query
-   batches; ground truth from ``hamming_exact_topk``; returned distances
-   equal to host-recomputed ones; tie-aware recall@10 floors; K4 launches
-   per batch; the flat batch's profile has no pass over the score block
-   beside K4 (no negate or mask kernel); one batch given as float +-1 rows
-   returns the same labels;
+   quant=B1))`` over HAM_PATH_N clustered 1024-bit rows (4096 random
+   centres, each bit flipped with p = 1/8) given as packed uint32 words,
+   built on all host cores, searched flat and graph (k=10, ef=64, 8 seeds)
+   on 1024-query batches; ground truth from ``hamming_exact_topk``;
+   returned distances equal to host-recomputed ones; tie-aware recall@10
+   floors; K4 launches per batch; the flat batch's profile has no pass over
+   the score block beside K4 (no negate or mask kernel); one batch given as
+   float +-1 rows returns the same labels;
 10. the i8 main path: ``Index(HnswParams(dim=128, quant=I8))`` over the f32
    phase's first I8_N rows (``--i8-n``), flat and graph, recall@10 against the
    f32 truth and (flat) against an exact scan of the dequantised rows; no
@@ -76,12 +77,13 @@ Phases, each of which exits non-zero on failure:
    rows: ``device_insert`` through the beam, K1's launches, self-search
    top-1 of the new rows, validation; (c), after phase 9, a hamming index
    built with ``build="device"`` over phase 9's rows: K4's launches,
-   tie-aware recall@10;
+   tie-aware recall@10 against phase 9's truth;
 12. persistence on (a)+(b)'s index (``storage/``, ``Index.save / load /
    follow / reindex_concurrent / search_streaming``), snapshots in a
    temporary directory checked for room first: (1) ``save``, then
    ``Index.load`` into the native and the python engine, whose flat and
-   graph searches equal the original's exactly, and ``validate``; (2) a
+   graph searches equal the original's exactly, and ``validate``; (2) on
+   an index of the first PERSIST_N rows built on the host and saved, a
    writer opened with ``log_path=`` adds WAL_N rows on one host thread and
    deletes WAL_DELETES labels, a follower (``Index.follow``) catches up and
    the crashed writer is reopened (both replays side by side), and both
@@ -114,7 +116,8 @@ Phases, each of which exits non-zero on failure:
    equal to the host's, K4's launches; (d) ``weighted_search`` of two
    query columns (0.7 / 0.3) over the copy, held to an exact float64
    re-rank of its candidate pools; (e) an ``autotune`` job (10,000 sampled
-   rows, the six variants, 10 queries) through ``Daemon(JobQueue(...))``,
+   rows, the AUTOTUNE_JOB_VARIANTS, 10 queries) through
+   ``Daemon(JobQueue(...))``,
    completed with a best variant at 0.9, then reused from its stored
    result with no sweep; ``cli.main(["search", ..., "--mode", "graph"])``
    over the snapshot and phase 5's queries, recall@10 and K1's launches;
@@ -142,11 +145,28 @@ Phases, each of which exits non-zero on failure:
    ``build_sharded_device`` over phase 9's first SHARD_HAM_N 1024-bit rows
    (K4 pools), beam and flat: distances equal to the host's popcount,
    tie-aware recall@10 against a K4 truth over those rows;
-15. one JSON line of kernel numbers (K1's and K4's ``build_launches`` from
+15. ranks (``init_multihost``, ``make_mesh`` over a process group): phase
+   14's S=4 index placed over ranks of this script (``--rank-leg``, started
+   with torchrun's environment, each leg killed and failed at its wall
+   limit, any rank's failure failing the run), every kernel's launches
+   summed over the ranks: (a) one NCCL rank: ``build_sharded_device``
+   (shard digests equal to phase 14's), beam and exact flat results equal
+   to phase 14's; NCCL with two ranks on the one card must raise; (b) two
+   gloo ranks sharing the card, two shards each: the same build, beam and
+   flat, ``quantize_sharded("pq")`` (one codebook on both ranks; rerank
+   equal to phase 14's when the codebook is, recall floor), phase 14's
+   inserts and deletes (searches equal), ``save_sharded`` (files
+   byte-equal to phase 14's one-process save) and ``load_sharded`` on the
+   ranks and in this process (searches equal), the hamming rows' device
+   build, beam and flat scan (equal to phase 14 (d)); (c) four gloo ranks,
+   data=RANKS_DATA x 2 shard ranks, loading (b)'s save: beam and flat
+   results equal to (b)'s; seconds and ms a batch of each beside phase
+   14's, and the merge's bytes and ms a batch;
+16. one JSON line of kernel numbers (K1's and K4's ``build_launches`` from
    (b) and (c), every kernel's ``persist_launches`` from 12,
-   ``service_launches`` from 13 and ``shard_launches`` from 14), the
-   ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
-   {...}}``.
+   ``service_launches`` from 13, ``shard_launches`` from 14 and
+   ``rank_launches`` from 15), the ``nvidia-smi`` line, and last the
+   result line ``{"ok": true, "device": {...}}``.
 
 Needs the ``lantern_tpu_torch`` package beside it and a CUDA device; never
 imports jax or lantern_tpu.
@@ -158,11 +178,13 @@ import argparse
 import asyncio
 import concurrent.futures
 import contextlib
+import hashlib
 import io
 import itertools
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -199,12 +221,14 @@ from lantern_tpu_torch.quant.pq import (
     train_codebook_chunked,
 )
 from lantern_tpu_torch.parallel import (
+    _dist,
     build_sharded,
     build_sharded_device,
     compact_sharded,
     delete_sharded,
     flat_search_sharded,
     flat_search_sharded_rerank,
+    init_multihost,
     insert_sharded,
     load_sharded,
     make_mesh,
@@ -212,6 +236,7 @@ from lantern_tpu_torch.parallel import (
     save_sharded,
     search_sharded,
 )
+from lantern_tpu_torch.parallel.sharded import ShardedSearchStats
 from lantern_tpu_torch.service.client import ExternalIndexClient, build_via_server
 from lantern_tpu_torch.service.daemon import Daemon, JobQueue
 from lantern_tpu_torch.service.http_api import HttpApi
@@ -255,15 +280,33 @@ BUILD_SPANS = ("build.candidates", "build.pair_dists", "build.select",
 # half of them deleted), the search thread's pause between batches (it
 # shares the interpreter with the rebuild's Python loops), the streaming
 # scan's queries and rows, the share of the OPQ index compacted away
-WAL_N, WAL_DELETES = 16_384, 50_000
+WAL_N, WAL_DELETES = 8_192, 10_000
 RC_PAIRS, RC_PAIR_ROWS, RC_SEARCH_PAUSE_S = 4, 256, 0.5
-STREAM_QUERIES, STREAM_ROWS = 8, 1000
+STREAM_QUERIES, STREAM_ROWS = 4, 1000
 # the i8 path's default rows. Cuts that keep the whole run under 1200 s
 # once the service phase (~200 s) joined it: the i8 path from 1M rows
 # (its host build took 73.5 s), WAL_N from 65,536 (a one-thread insert of
 # ~0.6 ms a row, twice: the writer, then the replays), STREAM_QUERIES
 # from 16 (2.5 s each)
 I8_N = 100_000
+# Cuts, each the depth of an earlier path, that bring the whole run back
+# inside its 1200 s once the ranks phase joined it (1,022.8 s on an H100 at
+# 700 W, and past 1200 s on a slower host): the PQ path's rows (its host
+# build over the 1M decoded rows took 67.1 s); the hamming path's rows (its
+# host build took 41.3 s at 1M; phase 11 (c) builds the same rows on the
+# card, in enough rounds to reach PROFILED_ROUND); the index of the
+# persistence phase's insert log, concurrent rebuild and streaming scan,
+# built on the host from the first PERSIST_N rows (the rebuild of 1.03M
+# rows took 112.1 s; (1) still saves and loads the n-row device-built
+# index), with WAL_N from 16,384, WAL_DELETES from 50,000 (a twentieth of
+# the index, as before) and STREAM_QUERIES from 8; the autotune job's
+# variants (the six took 74.2 s, ~10 s each but 20 s for m=48); HTTP_N
+# from 100,000 (24.4 s of JSON rows); SHARD_COMPACT_N and SHARD_HAM_N from
+# 100,000. With them the run took 675.8 s.
+PQ_PATH_N = 250_000
+HAM_PATH_N = 500_000
+PERSIST_N = 200_000
+AUTOTUNE_JOB_VARIANTS = ((8, 40, 64), (12, 48, 64), (16, 60, 76))
 OPQ_DELETE_EVERY = 10
 # the service phase: the collection the HTTP API serves from the indexing
 # server's snapshot, its single-vector requests and client threads; the
@@ -275,7 +318,7 @@ OPQ_DELETE_EVERY = 10
 HTTP_COLLECTION = "smoke"
 HTTP_REQUESTS, HTTP_THREADS = 1024, 4
 HTTP_RECALL_MIN = 0.999
-HTTP_N, HTTP_BATCH, HTTP_QUERIES, HTTP_DELETE_SHARE = 100_000, 1000, 64, 0.1
+HTTP_N, HTTP_BATCH, HTTP_QUERIES, HTTP_DELETE_SHARE = 50_000, 1000, 64, 0.1
 HTTP_HAM_N, HTTP_HAM_QUERIES = 10_000, 32
 WEIGHTED_QUERIES, WEIGHTS = 64, (0.7, 0.3)
 PQ_CHUNK_ROWS, PQ_STOP_PASSES, PQ_TABLE_ITERS, PQ_MSE_RATIO = 65536, 3, 8, 1.15
@@ -288,8 +331,14 @@ AUTOTUNE_TARGET = 0.9
 SHARDS = 4
 SHARD_PQ_TRAIN_ROWS, SHARD_RERANK = 65_536, 100
 SHARD_INSERT_N, SHARD_DELETES = 16_384, 50_000
-SHARD_COMPACT_N, SHARD_COMPACT_DELETE_EVERY = 100_000, 10
-SHARD_HAM_N = 100_000
+SHARD_COMPACT_N, SHARD_COMPACT_DELETE_EVERY = 50_000, 10
+SHARD_HAM_N = 50_000
+# the ranks phase: phase 14's index over ranks of this script, the data axis
+# of leg (c), each collective's timeout (a rank that died fails the others)
+# and each leg's wall limit (a leg past it is killed and fails the run)
+RANKS_DATA = 2
+RANK_TIMEOUT_S = 120
+RANKS_A_TIMEOUT_S, RANKS_B_TIMEOUT_S, RANKS_C_TIMEOUT_S = 240, 360, 180
 
 
 def fail(msg: str) -> None:
@@ -665,6 +714,9 @@ def phase_pq_path(base, queries, queries_dev, gt_i, seed):
     """The PQ main path at full width: train on the batch inside add, host
     build over the decoded rows, then flat / graph / rerank / auto."""
     n = base.shape[0]
+    if gt_i is None:  # a cut PQ table: its own f32 truth
+        _, gt_i = exact_search(queries_dev, torch.from_numpy(base).cuda(), K)
+        gt_i = gt_i.cpu().numpy()
     # the PQ path's launches start here
     gather_dists.launches = pq_decode.launches = 0
     ix = Index(HnswParams(dim=DIM, pq=True), capacity=n, seed=seed,
@@ -888,7 +940,9 @@ def phase_hamming_kernel(n, seed):
 
 _POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
 _POPCOUNT16 = np.array([bin(i).count("1") for i in range(1 << 16)], np.uint8)
-HAM_HOST_TRUTH_QUERIES = 64  # queries whose k nearest the host recomputes
+# queries whose k nearest the host recomputes (cut from 64, 20.2 s at 1M
+# rows, once the ranks phase joined the run)
+HAM_HOST_TRUTH_QUERIES = 16
 
 
 def host_hamming(rows, queries, ids):
@@ -1326,7 +1380,7 @@ def phase_hamming_device_build(rows, queries, gt_i, gt_d, host_build_s, seed):
     k4_launches = hamming_block.launches
     log(f"hamming device build: {n} rows x {HAM_DIM} bits in {build_s:.1f} s "
         f"over {probe.rounds} rounds, K4 launches {k4_launches}; host build "
-        f"(phase 9, all host cores) {host_build_s:.1f} s")
+        f"of phase 9's rows (all host cores) {host_build_s:.1f} s")
     probe.report("hamming flat")
     if k4_launches <= 0:
         fail("the hamming device build never launched K4")
@@ -1390,11 +1444,12 @@ def check_live(name, labels, dead: np.ndarray):
         fail(f"{name}: {int(hit.sum())} deleted labels returned")
 
 
-def phase_persistence(ix, queries, queries_dev, centers, seed):
-    """(1)-(4) on the device-built f32 index: save and load into both
-    engines; the insert log with a follower and a crash; a concurrent
-    device rebuild under searches and writes; the streaming scan. Returns
-    K1's launches (two threads in (3): counted, not held to a number)."""
+def phase_persistence(ix, rows, queries, queries_dev, centers, seed):
+    """(1) on the device-built f32 index: save and load into both engines;
+    (2)-(4) on an index of ``rows`` built on the host: the insert log with a
+    follower and a crash; a concurrent device rebuild under searches and
+    writes; the streaming scan. Returns K1's launches (two threads in (3):
+    counted, not held to a number)."""
     batches = [queries[i:i + BATCH] for i in range(0, len(queries), BATCH)]
     modes = ("graph", "flat")
     n = ix.size
@@ -1426,7 +1481,16 @@ def phase_persistence(ix, queries, queries_dev, centers, seed):
         equal=f"{len(queries)} queries, graph (ef 64) and flat, both "
               "engines")))
 
-    # (2) the insert log: a writer, a follower, the writer's crash
+    # (2) the insert log on the smaller index: a writer, a follower, the
+    # writer's crash
+    n = len(rows)
+    t0 = time.perf_counter()
+    small = Index(HnswParams(dim=DIM), capacity=n, seed=seed, device="cuda")
+    small.add(rows, nthreads=0)
+    small.save(snap)
+    del small
+    log(f"persistence: the insert log's index, {n} rows built on all host "
+        f"cores and saved, in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed + 6)
     new = (centers[rng.integers(0, len(centers), WAL_N)] + 0.35
            * rng.standard_normal((WAL_N, DIM), dtype=np.float32))
@@ -1473,7 +1537,7 @@ def phase_persistence(ix, queries, queries_dev, centers, seed):
                         w_res[mode])
     del follower
     log("persistence wal " + json.dumps(dict(
-        added=WAL_N, deleted=WAL_DELETES, log_mb=log_mb,
+        rows=n, added=WAL_N, deleted=WAL_DELETES, log_mb=log_mb,
         writer_add_s=add_s, writer_delete_s=delete_s,
         follower_catchup_s=catchup_s, reopen_replay_s=replay_s,
         replay="one host thread each, side by side",
@@ -1761,11 +1825,11 @@ def phase_http_collections(url, base, queries):
     """(c) a HTTP_N-row collection built over HTTP: rows, the device
     rebuild, PQ with rerank, deletes and compaction; then a hamming
     collection. Returns the decode kernel's and K4's launches."""
-    col = f"{url}/collections/c100k"
+    col = f"{url}/collections/rows"
     rows = base[:HTTP_N]
     qs = queries[:HTTP_QUERIES]
     t0 = time.perf_counter()
-    http("POST", f"{url}/collections", {"name": "c100k", "metric": "l2sq"})
+    http("POST", f"{url}/collections", {"name": "rows", "metric": "l2sq"})
     for i in range(0, HTTP_N, HTTP_BATCH):
         res = http("POST", f"{col}/rows", {"rows": [
             {"vector": r.tolist()} for r in rows[i:i + HTTP_BATCH]]})
@@ -1896,7 +1960,8 @@ def phase_jobs_and_cli(work, base_npy, snapshot, queries, gt_i, base):
     launches."""
     q = JobQueue(os.path.join(work, "jobs"))
     jid = q.submit("autotune", {"input": base_npy, "k": K,
-                                "target_recall": AUTOTUNE_TARGET})
+                                "target_recall": AUTOTUNE_TARGET,
+                                "variants": AUTOTUNE_JOB_VARIANTS})
     gather_dists.launches = 0
     t0 = time.perf_counter()
     Daemon(q, device="cuda").run_pending()
@@ -2057,7 +2122,10 @@ def phase_sharding(base, queries, gt_i, centers, ham_rows, ham_queries,
     """(a)-(d) of the sharding phase over SHARDS shards on the one card.
     ``single``: the unsharded numbers to report beside (phase 5's graph and
     flat ms a batch and K1 launches a batch, phase 11's build seconds).
-    Returns each kernel's launches over (a)-(d)."""
+    Returns each kernel's launches over (a)-(d) and what phase 15 is held
+    to: the builds' shard digests, the search results, the PQ codebook's
+    digest, the save's file digests, the inserted rows and deleted labels
+    and the seconds and ms a batch of each step."""
     n = base.shape[0]
     t_phase = time.perf_counter()
     params = HnswParams(dim=DIM, m=16, ef_construction=128)
@@ -2088,14 +2156,18 @@ def phase_sharding(base, queries, gt_i, centers, ham_rows, ham_queries,
         f"{launched}")
     if any(launched):
         fail(f"the flat-pool sharded build launched kernels {launched}")
+    ref = {"build_digests": shard_digests(ix), "build_s": build_s}
     k10 = gather_dists.launches
-    d, g, _, graph_ms = sharded_batches(
+    d, g, lab, graph_ms = sharded_batches(
         lambda b: search_sharded(ix, b, k=K, ef=64), batches, "graph")
     k1_per_batch = (gather_dists.launches - k10) / (len(batches) + 1)
+    ref.update(graph=(d, g, lab), graph_ms=graph_ms,
+               k1_per_batch=k1_per_batch)
     check_exact_dists("graph", base, queries, d, g)
     graph_r = recall(g, gt_i)
-    d, g, _, flat_ms = sharded_batches(
+    d, g, lab, flat_ms = sharded_batches(
         lambda b: flat_search_sharded(ix, b, k=K, exact=True), batches, "flat")
+    ref.update(flat=(d, g, lab), flat_ms=flat_ms)
     check_exact_dists("flat", base, queries, d, g)
     flat_r = recall(g, gt_i)
     log("sharded search " + json.dumps(dict(
@@ -2120,16 +2192,18 @@ def phase_sharding(base, queries, gt_i, centers, ham_rows, ham_queries,
     torch.cuda.synchronize()
     pq_s = time.perf_counter() - t0
     pq_enc = pq_decode.launches - pq0
+    ref.update(codebook=codebook_digest(ixq), pq_s=pq_s)
     _, g, _, adc_ms = sharded_batches(
         lambda b: flat_search_sharded(ixq, b, k=K), batches, "pq flat")
     adc_r = recall(g, gt_i)
-    d, g, _, rr_ms = sharded_batches(
+    d, g, lab, rr_ms = sharded_batches(
         lambda b: flat_search_sharded_rerank(ixq, b, k=K,
                                              shortlist=SHARD_RERANK),
         batches, "pq rerank")
     # the rerank scores bf16 copies of the rows: within bf16's rounding
     check_exact_dists("pq rerank", base, queries, d, g, rtol=2e-2, atol=0.1)
     rr_r = recall(g, gt_i)
+    ref.update(rerank=(d, g, lab), rerank_ms=rr_ms, rerank_recall=rr_r)
     pq_per_batch = (pq_decode.launches - pq0 - pq_enc) / (2 * len(batches) + 2)
     log("sharded pq " + json.dumps(dict(
         quantize_s=pq_s, subvectors=ixq.vectors.shape[2],
@@ -2197,6 +2271,7 @@ def phase_sharding(base, queries, gt_i, centers, ham_rows, ham_queries,
         save_s = time.perf_counter() - t0
         mib = sum(os.path.getsize(os.path.join(path, f))
                   for f in os.listdir(path)) / 2**20
+        ref["save_digests"] = file_digests(path)
         t0 = time.perf_counter()
         loaded = load_sharded(path, mesh, engine="native")
         torch.cuda.synchronize()
@@ -2218,6 +2293,9 @@ def phase_sharding(base, queries, gt_i, centers, ham_rows, ham_queries,
         searches_after_load_equal=True)))
     if top1 < INSERT_SELF_MIN:
         fail(f"sharded insert self-search top-1 {top1} < {INSERT_SELF_MIN}")
+    ref.update(extra=extra, dead=dead, after_delete=before, insert_s=insert_s,
+               delete_s=delete_s, save_s=save_s, load_s=load_s,
+               snapshot_mib=mib)
     del ix, loaded
     sub = base[:SHARD_COMPACT_N]
     t0 = time.perf_counter()
@@ -2255,15 +2333,17 @@ def phase_sharding(base, queries, gt_i, centers, ham_rows, ham_queries,
     torch.cuda.synchronize()
     ham_s = time.perf_counter() - t0
     ham_build_k4 = hamming_block.launches - k40
+    ref.update(ham_digests=shard_digests(ixb), ham_build_s=ham_s)
     out = {}
     for mode, fn in (("graph", lambda b: search_sharded(ixb, b, k=K, ef=64)),
                      ("flat", lambda b: flat_search_sharded(ixb, b, k=K))):
-        d, g, _, ms = sharded_batches(fn, hbatches, f"hamming {mode}")
+        d, g, lab, ms = sharded_batches(fn, hbatches, f"hamming {mode}")
         exact = host_hamming(ham, ham_queries, g)
         if not np.array_equal(d, exact):
             fail(f"sharded hamming {mode}: distances differ from the host's "
                  f"popcount (max abs {np.abs(d - exact).max()})")
         out[mode] = (float((exact <= ham_kth).mean()), ms)
+        ref[f"ham_{mode}"], ref[f"ham_{mode}_ms"] = (d, g, lab), ms
     log("sharded hamming " + json.dumps(dict(
         rows=SHARD_HAM_N, bits=HAM_DIM, build_s=ham_s,
         build_k4_launches=ham_build_k4,
@@ -2286,7 +2366,381 @@ def phase_sharding(base, queries, gt_i, centers, ham_rows, ham_queries,
     for name, count in launches.items():
         if count <= 0:
             fail(f"the sharding phase never launched {name}")
-    return launches
+    return launches, ref
+
+
+def shard_digests(ix) -> dict:
+    """sha256 of each shard's tables and host ints, by global shard id."""
+    out = {}
+    for j, si in enumerate(ix.shard_ids):
+        h = hashlib.sha256()
+        for name in ("vectors", "sq_norms", "neighbors0", "upper_neighbors",
+                     "upper_slot", "levels", "labels", "deleted", "upper_ids",
+                     "global_ids"):
+            t = getattr(ix, name)[j].contiguous().cpu()
+            h.update(t.view(torch.uint8).numpy().tobytes())
+        h.update(repr((ix.entry[j], ix.max_level[j], ix.num_nodes[j])).encode())
+        out[str(si)] = h.hexdigest()
+    return out
+
+
+def codebook_digest(ix) -> str:
+    h = hashlib.sha256(ix.pq_codebook.cpu().numpy().tobytes())
+    if ix.pq_rotation is not None:
+        h.update(ix.pq_rotation.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def file_digests(path) -> dict:
+    out = {}
+    for name in sorted(os.listdir(path)):
+        h = hashlib.sha256()
+        with open(os.path.join(path, name), "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 24), b""):
+                h.update(chunk)
+        out[name] = h.hexdigest()
+    return out
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(leg: str, world: int, work: str, seed: int, timeout_s: float):
+    """Start ``world`` ranks of this script (``--rank-leg leg``), torchrun's
+    environment each, and wait for them. Any rank's non-zero exit or the
+    timeout kills the others and fails the run. Returns each rank's (info,
+    results) as the rank wrote them."""
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port()), "WORLD_SIZE": str(world),
+           "LOCAL_WORLD_SIZE": str(world)}
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            logs.append(open(os.path.join(work, f"{leg}_r{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-leg", leg,
+                 "--work", work, "--seed", str(seed)],
+                env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        while True:
+            codes = [p.poll() for p in procs]
+            if any(c not in (None, 0) for c in codes) or all(c == 0 for c in codes):
+                break
+            if time.perf_counter() - t0 > timeout_s:
+                codes = "timeout"
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r in range(world):
+        with open(os.path.join(work, f"{leg}_r{r}.log")) as f:
+            for line in f.read().splitlines()[-40:]:
+                log(f"  [{leg} rank {r}] {line}")
+    if codes == "timeout" or any(c != 0 for c in codes):
+        fail(f"ranks leg ({leg}): exit codes {codes} after "
+             f"{time.perf_counter() - t0:.1f} s")
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"{leg}_r{r}.json")) as f:
+            info = json.load(f)
+        res = dict(np.load(os.path.join(work, f"{leg}_r{r}.npz")))
+        out.append((info, res))
+    return out, time.perf_counter() - t0
+
+
+def kernel_launches() -> dict:
+    return {"gather_dists": gather_dists.launches,
+            "pq_decode": pq_decode.launches,
+            "hamming_block": hamming_block.launches}
+
+
+def rank_batches(fn, batches, res, name, info):
+    """``sharded_batches`` on a rank after one more warm-up batch (a group's
+    first collectives set up its communicators). Its results go to
+    ``res[name]``; its ms a batch, each kernel's launches a batch and the
+    merge's bytes and seconds a batch to ``info``."""
+    fn(batches[0])
+    _dist.reset_merge_stats()
+    before = kernel_launches()
+    d, g, lab, ms = sharded_batches(fn, batches, name)
+    res[f"{name}/d"], res[f"{name}/g"], res[f"{name}/l"] = d, g, lab
+    merge = _dist.merge_stats
+    calls = len(batches) + 1
+    info["ms"][name] = ms
+    info["launches_per_batch"][name] = {
+        k: (v - before[k]) / calls for k, v in kernel_launches().items()}
+    info["merge"][name] = {"bytes_per_batch": merge["bytes"] / calls,
+                           "host_bytes_per_batch": merge["host_bytes"] / calls,
+                           "ms_per_batch": merge["seconds"] / calls * 1e3}
+
+
+def rank_main(leg: str, work: str, seed: int) -> None:
+    """One rank of phase 15: joins the group from torchrun's environment
+    (NCCL in leg a, gloo in b and c) and runs its leg on the rows phase 14
+    wrote; writes its results and an info JSON to ``work``."""
+    import torch.distributed as dist
+
+    dev = init_multihost(backend="nccl" if leg == "a" else "gloo",
+                         timeout_s=RANK_TIMEOUT_S)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    info = {"rank": rank, "world": world, "backend": dist.get_backend(),
+            "device": str(dev), "s": {}, "ms": {}, "merge": {},
+            "launches_per_batch": {}}
+    res = {}
+    params = HnswParams(dim=DIM, m=16, ef_construction=128)
+    queries = np.load(os.path.join(work, "queries.npy"))
+    q_dev = torch.from_numpy(queries).to(dev)
+    batches = [q_dev[i:i + BATCH] for i in range(0, len(queries), BATCH)]
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        info["s"][name] = time.perf_counter() - t0
+        return out
+
+    if leg in ("a", "b"):
+        mesh = make_mesh(SHARDS)
+        base = np.load(os.path.join(work, "base.npy"), mmap_mode="r")
+        ix = timed("build", lambda: build_sharded_device(
+            base, params, mesh, batch=BATCH, seed=seed))
+        info["build_digests"] = shard_digests(ix)
+        # the [S, Q, k] results a batch, all data rows together
+        info["stated_merge_bytes"] = ShardedSearchStats.of(
+            ix, BATCH, K).collective_bytes_per_batch
+        rank_batches(lambda b: search_sharded(ix, b, k=K, ef=64), batches,
+                     res, "graph", info)
+        rank_batches(lambda b: flat_search_sharded(ix, b, k=K, exact=True),
+                     batches, res, "flat", info)
+    if leg == "b":
+        ixq = timed("quantize", lambda: quantize_sharded(
+            ix, mesh, quant="pq", train_rows=SHARD_PQ_TRAIN_ROWS, seed=seed))
+        info["codebook"] = codebook_digest(ixq)
+        rank_batches(lambda b: flat_search_sharded_rerank(
+            ixq, b, k=K, shortlist=SHARD_RERANK), batches, res, "rerank", info)
+        del ixq
+        extra = np.load(os.path.join(work, "extra.npy"))
+        dead = np.load(os.path.join(work, "dead.npy"))
+        ix = timed("insert", lambda: insert_sharded(ix, extra, mesh,
+                                                    batch=BATCH, seed=seed))
+        ix = timed("delete", lambda: delete_sharded(ix, dead))
+        for mode, fn in (("graph", lambda b: search_sharded(ix, b, k=K, ef=64)),
+                         ("flat", lambda b: flat_search_sharded(ix, b, k=K))):
+            rank_batches(fn, batches, res, f"after_delete_{mode}", info)
+        timed("save", lambda: save_sharded(ix, os.path.join(work, "ranks_save")))
+        del ix
+        ixl = timed("load", lambda: load_sharded(
+            os.path.join(work, "ranks_save"), mesh))
+        for mode, fn in (("graph", lambda b: search_sharded(ixl, b, k=K, ef=64)),
+                         ("flat", lambda b: flat_search_sharded(ixl, b, k=K))):
+            rank_batches(fn, batches, res, f"after_load_{mode}", info)
+        del ixl
+        # hamming shards: K4 in the flat pools, the entry scans, the flat scan
+        ham = np.load(os.path.join(work, "ham_rows.npy"))
+        hq = torch.from_numpy(np.load(os.path.join(work, "ham_queries.npy"))
+                              .view(np.int32)).to(dev)
+        hbatches = [hq[i:i + BATCH] for i in range(0, len(hq), BATCH)]
+        hparams = HnswParams(dim=HAM_DIM, metric=Metric.HAMMING,
+                             quant=QuantKind.B1)
+        ixb = timed("ham_build", lambda: build_sharded_device(
+            ham, hparams, mesh, batch=BATCH, seed=seed))
+        info["ham_digests"] = shard_digests(ixb)
+        for mode, fn in (("graph", lambda b: search_sharded(ixb, b, k=K, ef=64)),
+                         ("flat", lambda b: flat_search_sharded(ixb, b, k=K))):
+            rank_batches(fn, hbatches, res, f"ham_{mode}", info)
+    if leg == "c":
+        mesh = make_mesh(SHARDS, data=RANKS_DATA)
+        ixl = timed("load", lambda: load_sharded(
+            os.path.join(work, "ranks_save"), mesh))
+        info["stated_merge_bytes"] = ShardedSearchStats.of(
+            ixl, BATCH, K).collective_bytes_per_batch
+        for mode, fn in (("graph", lambda b: search_sharded(ixl, b, k=K, ef=64)),
+                         ("flat", lambda b: flat_search_sharded(ixl, b, k=K))):
+            rank_batches(fn, batches, res, mode, info)
+    info["launches"] = kernel_launches()
+    np.savez(os.path.join(work, f"{leg}_r{rank}.npz"), **res)
+    with open(os.path.join(work, f"{leg}_r{rank}.json"), "w") as f:
+        json.dump(info, f)
+    _dist.barrier(dev)
+    dist.destroy_process_group()
+    log(f"rank {rank} of {world} ({leg}) done")
+
+
+def check_same(name, got, want):
+    """Results (d, gids, labels) equal to ``want``, element for element."""
+    for what, a, b in zip(("distances", "gids", "labels"), got, want):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            n = a.size if a.shape != b.shape else int((a != b).sum())
+            fail(f"ranks {name}: {what} differ from phase 14's ({n} of "
+                 f"{b.size})")
+
+
+def rank_results(ranks, name):
+    """One result of every rank, which must all be equal; returns rank 0's."""
+    got = [tuple(res[f"{name}/{x}"] for x in "dgl") for _, res in ranks]
+    for r, other in enumerate(got[1:], 1):
+        check_same(f"{name} (rank {r} against rank 0)", other, got[0])
+    return got[0]
+
+
+def rank_digests(ranks, key) -> dict:
+    out = {}
+    for info, _ in ranks:
+        out.update(info[key])
+    return out
+
+
+def phase_ranks(base, queries, gt_i, ham_rows, ham_queries, ref, seed):
+    """Phase 15: the S=4 index of phase 14 placed over ranks. (a) one NCCL
+    rank; (b) two gloo ranks sharing the card, two shards each; (c) four
+    gloo ranks, data=2 x 2 shard ranks, loading (b)'s save. Each result is
+    held to phase 14's (``ref``) where the plan is the same. Returns each
+    kernel's launches, summed over the ranks and this process."""
+    t_phase = time.perf_counter()
+    gather_dists.launches = pq_decode.launches = hamming_block.launches = 0
+    if torch.cuda.device_count() == 1:
+        try:
+            init_multihost(f"127.0.0.1:{free_port()}", 2, 0, backend="nccl")
+        except ValueError as e:
+            if "gloo" not in str(e):
+                fail(f"NCCL with two ranks on one card raised {e}")
+            log(f"ranks: NCCL with two ranks on the one card refused: {e}")
+        else:
+            fail("init_multihost(backend='nccl') took two ranks on one card")
+    work = snapshot_dir(2 * base.nbytes)
+    try:
+        t0 = time.perf_counter()
+        for name, arr in (("base", base), ("queries", queries),
+                          ("extra", ref["extra"]), ("dead", ref["dead"]),
+                          ("ham_rows", ham_rows), ("ham_queries", ham_queries)):
+            np.save(os.path.join(work.name, f"{name}.npy"), arr)
+        log(f"ranks: inputs written as .npy in {time.perf_counter() - t0:.1f} s")
+        launched = {"gather_dists": 0, "pq_decode": 0, "hamming_block": 0}
+        summary = {}
+
+        def leg(name, world, timeout_s):
+            ranks, wall = run_ranks(name, world, work.name, seed, timeout_s)
+            for info, _ in ranks:
+                for k, v in info["launches"].items():
+                    launched[k] += v
+            summary[name] = dict(
+                world=world, backend=ranks[0][0]["backend"], wall_s=wall,
+                s={k: max(i["s"][k] for i, _ in ranks) for k in ranks[0][0]["s"]},
+                ms_per_batch={k: max(i["ms"][k] for i, _ in ranks)
+                              for k in ranks[0][0]["ms"]},
+                merge_per_batch=ranks[0][0]["merge"],
+                stated_merge_bytes=ranks[0][0]["stated_merge_bytes"],
+                launches_per_batch_per_rank=[i["launches_per_batch"]
+                                             for i, _ in ranks],
+                launches_per_rank=[i["launches"] for i, _ in ranks])
+            return ranks
+
+        # (a) one NCCL rank: the collectives a multi-card machine runs
+        ranks = leg("a", 1, RANKS_A_TIMEOUT_S)
+        if rank_digests(ranks, "build_digests") != ref["build_digests"]:
+            fail("ranks (a): the NCCL rank's device build differs from phase 14's")
+        check_same("(a) graph", rank_results(ranks, "graph"), ref["graph"])
+        check_same("(a) flat", rank_results(ranks, "flat"), ref["flat"])
+        log("ranks (a) " + json.dumps(dict(
+            summary["a"], phase14=dict(build_s=ref["build_s"],
+                                       graph_ms=ref["graph_ms"],
+                                       flat_ms=ref["flat_ms"],
+                                       k1_per_batch=ref["k1_per_batch"]),
+            equal_to_phase14=True)))
+
+        # (b) two gloo ranks sharing the card
+        ranks = leg("b", 2, RANKS_B_TIMEOUT_S)
+        if rank_digests(ranks, "build_digests") != ref["build_digests"]:
+            fail("ranks (b): the two ranks' device build differs from phase 14's")
+        check_same("(b) graph", rank_results(ranks, "graph"), ref["graph"])
+        check_same("(b) flat", rank_results(ranks, "flat"), ref["flat"])
+        books = {info["codebook"] for info, _ in ranks}
+        if len(books) != 1:
+            fail("ranks (b): the ranks hold different PQ codebooks")
+        book_equal = books == {ref["codebook"]}
+        d, g, lab = rank_results(ranks, "rerank")
+        rr_r = recall(g, gt_i)
+        if book_equal:
+            check_same("(b) rerank", (d, g, lab), ref["rerank"])
+        if rr_r < PQ_AUTO_RECALL_MIN:
+            fail(f"ranks (b): PQ rerank recall@10 {rr_r} < {PQ_AUTO_RECALL_MIN}")
+        for mode in ("graph", "flat"):
+            check_same(f"(b) {mode} after delete",
+                       rank_results(ranks, f"after_delete_{mode}"),
+                       ref["after_delete"][mode])
+            check_same(f"(b) {mode} after load",
+                       rank_results(ranks, f"after_load_{mode}"),
+                       ref["after_delete"][mode])
+        save_dir = os.path.join(work.name, "ranks_save")
+        if file_digests(save_dir) != ref["save_digests"]:
+            fail("ranks (b): the two ranks' save is not byte-equal to "
+                 "phase 14's one-process save")
+        if rank_digests(ranks, "ham_digests") != ref["ham_digests"]:
+            fail("ranks (b): the hamming device build differs from phase 14's")
+        for mode in ("graph", "flat"):
+            check_same(f"(b) hamming {mode}", rank_results(ranks, f"ham_{mode}"),
+                       ref[f"ham_{mode}"])
+        log("ranks (b) " + json.dumps(dict(
+            summary["b"], rerank_recall_at_10=rr_r, codebook_equal_to_phase14=book_equal,
+            phase14=dict(build_s=ref["build_s"], graph_ms=ref["graph_ms"],
+                         flat_ms=ref["flat_ms"], quantize_s=ref["pq_s"],
+                         rerank_ms=ref["rerank_ms"],
+                         rerank_recall=ref["rerank_recall"],
+                         insert_s=ref["insert_s"], delete_s=ref["delete_s"],
+                         save_s=ref["save_s"], load_s=ref["load_s"],
+                         ham_build_s=ref["ham_build_s"],
+                         ham_graph_ms=ref["ham_graph_ms"],
+                         ham_flat_ms=ref["ham_flat_ms"]),
+            save_byte_equal=True, equal_to_phase14=True)))
+        b_after_load = {m: rank_results(ranks, f"after_load_{m}")
+                        for m in ("graph", "flat")}
+
+        # the two ranks' save in one process (no group)
+        mesh = make_mesh(n_shards=SHARDS)
+        t0 = time.perf_counter()
+        one = load_sharded(save_dir, mesh)
+        torch.cuda.synchronize()
+        one_load_s = time.perf_counter() - t0
+        q_dev = torch.from_numpy(queries).cuda()
+        batches = [q_dev[i:i + BATCH] for i in range(0, len(queries), BATCH)]
+        for mode, fn in (("graph", lambda b: search_sharded(one, b, k=K, ef=64)),
+                         ("flat", lambda b: flat_search_sharded(one, b, k=K))):
+            check_same(f"one process after the ranks' save ({mode})",
+                       sharded_batches(fn, batches, mode)[:3],
+                       ref["after_delete"][mode])
+        del one
+
+        # (c) four gloo ranks: data=2 x 2 shard ranks
+        ranks = leg("c", 4, RANKS_C_TIMEOUT_S)
+        for mode in ("graph", "flat"):
+            check_same(f"(c) {mode}", rank_results(ranks, mode),
+                       b_after_load[mode])
+        graph_ms = summary["c"]["ms_per_batch"]["graph"]
+        log("ranks (c) " + json.dumps(dict(
+            summary["c"], graph_qps=BATCH / graph_ms * 1e3,
+            b_graph_ms=summary["b"]["ms_per_batch"]["after_load_graph"],
+            phase14_graph_ms=ref["graph_ms"], equal_to_b=True)))
+    finally:
+        work.cleanup()
+    for k, v in kernel_launches().items():
+        launched[k] += v
+    log(f"ranks phase: {time.perf_counter() - t_phase:.1f} s, one-process "
+        f"load of the ranks' save {one_load_s:.2f} s, launches summed over "
+        f"ranks " + json.dumps(launched))
+    for name, count in launched.items():
+        if count <= 0:
+            fail(f"the ranks phase never launched {name}")
+    return launched
 
 
 def check_one_pass(ev):
@@ -2331,18 +2785,35 @@ def main(argv=None):
                     help=f"rows of the i8 path (default: {I8_N} or --n, "
                          "the fewer)")
     ap.add_argument("--seed", type=int, default=0)
+    # a rank of phase 15, started by the phase itself
+    ap.add_argument("--rank-leg", choices=("a", "b", "c"), help=argparse.SUPPRESS)
+    ap.add_argument("--work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank_leg:
+        rank_main(args.rank_leg, args.work, args.seed)
+        return
     i8_n = args.i8_n or min(I8_N, args.n)
+    pq_n, ham_n = min(PQ_PATH_N, args.n), min(HAM_PATH_N, args.n)
+    persist_n = min(PERSIST_N, args.n)
 
-    t_start = time.perf_counter()
+    t_start = t_lap = time.perf_counter()
+    phase_s = {}
+
+    def lap(name):  # the seconds since the last lap, logged at the end
+        nonlocal t_lap
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_lap, 1)
+        t_lap = now
+
     smi = phase_environment()
     phase_build()
     if args.n != 1_000_000:
         log(f"n cut: {args.n} rows instead of 1000000")
-    if i8_n != args.n:
-        log(f"i8 n cut: {i8_n} rows instead of {args.n}")
-    log(f"persistence cuts: WAL_N {WAL_N} rows instead of 65536, "
-        f"STREAM_QUERIES {STREAM_QUERIES} instead of 16")
+    log(f"path cuts: i8 {i8_n}, PQ {pq_n}, hamming {ham_n} rows of {args.n}; "
+        f"persistence (2)-(4) on {persist_n} rows, WAL_N {WAL_N}, "
+        f"WAL_DELETES {WAL_DELETES}, STREAM_QUERIES {STREAM_QUERIES}; "
+        f"autotune job variants {len(AUTOTUNE_JOB_VARIANTS)} of 6; HTTP_N "
+        f"{HTTP_N}")
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
     base, centers = clustered(rng, args.n)
@@ -2354,15 +2825,18 @@ def main(argv=None):
     log(f"data: {args.n} x {DIM} clustered rows + {len(queries)} queries in "
         f"{time.perf_counter() - t0:.1f} s (seed {args.seed})")
 
+    lap("environment, build, data")
     k1, max_abs = phase_kernel(base_dev, queries_dev, args.seed)
     torch.cuda.synchronize()
     pq, pq_max_abs = phase_pq_kernel(args.seed)
     torch.cuda.synchronize()
     k4, k4_max_abs = phase_hamming_kernel(args.n, args.seed)
     torch.cuda.synchronize()
+    lap("kernels")
     launches, host_build_s, gt_i, main_results = phase_main_path(
         base, queries, base_dev, queries_dev, args.seed)
     torch.cuda.synchronize()
+    lap("main path")
     del base_dev
     # the service phase's files: the server's snapshot, the rows as .npy,
     # the collections the HTTP API saves, jobs, the PQ table
@@ -2371,39 +2845,55 @@ def main(argv=None):
     k1_build_launches, dev_ix, dev_build_s = phase_device_build(
         base, queries, gt_i, centers, host_build_s, args.seed, snapshot)
     torch.cuda.synchronize()
-    k1_persist = phase_persistence(dev_ix, queries, queries_dev, centers,
-                                   args.seed)
+    lap("device build")
+    k1_persist = phase_persistence(dev_ix, base[:persist_n], queries,
+                                   queries_dev, centers, args.seed)
     del dev_ix
     torch.cuda.synchronize()
+    lap("persistence")
     k1_service, pq_service, k4_service = phase_service(
         work.name, snapshot, base, queries, gt_i)
     work.cleanup()
     torch.cuda.synchronize()
-    pq_launches = phase_pq_path(base, queries, queries_dev, gt_i, args.seed)
+    lap("service")
+    pq_launches = phase_pq_path(base[:pq_n], queries, queries_dev,
+                                gt_i if pq_n == args.n else None, args.seed)
     torch.cuda.synchronize()
+    lap("pq path")
     opq = phase_opq(args.seed)
     torch.cuda.synchronize()
+    lap("opq")
     (k4_launches, ham_rows, ham_queries, ham_gt_i, ham_gt_d, ham_build_s,
-     ham_ix) = phase_hamming_path(args.n, args.seed)
+     ham_ix) = phase_hamming_path(ham_n, args.seed)
     torch.cuda.synchronize()
+    lap("hamming path")
     k4_build_launches = phase_hamming_device_build(
         ham_rows, ham_queries, ham_gt_i, ham_gt_d, ham_build_s, args.seed)
     ham_rows = ham_rows[:SHARD_HAM_N].copy()  # the sharding phase's
     torch.cuda.synchronize()
+    lap("hamming device build")
     k4_persist, pq_persist = phase_persistence_roundtrips(
         ham_ix, ham_queries, opq)
     del ham_ix, opq
     torch.cuda.synchronize()
+    lap("persistence round trips")
     phase_i8_path(base[:i8_n], queries, queries_dev,
                   gt_i if i8_n == args.n else None, args.seed)
     torch.cuda.synchronize()
-    shard = phase_sharding(
+    lap("i8 path")
+    shard, shard_ref = phase_sharding(
         base, queries, gt_i, centers, ham_rows, ham_queries,
         dict(graph_ms=main_results["graph"]["ms_per_batch"],
              flat_ms=main_results["flat"]["ms_per_batch"],
              k1_per_batch=main_results["graph"]["k1_launches_per_batch"],
              device_build_s=dev_build_s), args.seed)
     torch.cuda.synchronize()
+    lap("sharding")
+    ranks = phase_ranks(base, queries, gt_i, ham_rows, ham_queries, shard_ref,
+                        args.seed)
+    del shard_ref
+    lap("ranks")
+    log("phase seconds " + json.dumps(phase_s))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -2416,6 +2906,7 @@ def main(argv=None):
         "persist_launches": k1_persist,
         "service_launches": k1_service,
         "shard_launches": shard["gather_dists"],
+        "rank_launches": ranks["gather_dists"],
         "max_abs_err": max_abs,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -2434,6 +2925,7 @@ def main(argv=None):
         "persist_launches": pq_persist,
         "service_launches": pq_service,
         "shard_launches": shard["pq_decode"],
+        "rank_launches": ranks["pq_decode"],
         "max_abs_err": pq_max_abs,
         "ms": pq["ms"],
         "plain_ms": pq["plain_ms"],
@@ -2451,6 +2943,7 @@ def main(argv=None):
         "persist_launches": k4_persist,
         "service_launches": k4_service,
         "shard_launches": shard["hamming_block"],
+        "rank_launches": ranks["hamming_block"],
         "max_abs_err": k4_max_abs,
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],

@@ -1,4 +1,5 @@
-"""Sharded indexes: S subgraphs on a leading shard axis of one card."""
+"""Sharded indexes: S subgraphs on a leading shard axis of one card, or
+placed over the ranks of a process group (``init_multihost``)."""
 
 from lantern_tpu_torch.parallel.sharded import (  # noqa: F401
     Mesh,
@@ -9,6 +10,7 @@ from lantern_tpu_torch.parallel.sharded import (  # noqa: F401
     delete_sharded,
     flat_search_sharded,
     flat_search_sharded_rerank,
+    init_multihost,
     insert_sharded,
     load_sharded,
     local_exclude_masks,

@@ -1,14 +1,16 @@
-"""Sharded index on one card (port of lantern_tpu/parallel/sharded.py).
+"""Sharded index on one card or over the ranks of a process group (port of
+lantern_tpu/parallel/sharded.py).
 
 The reference partitions the node set round-robin into S shards, builds one
 HNSW subgraph per shard and stacks the shards' arrays on a leading shard
 axis, which its mesh places one shard per device; a search runs every
 shard's subgraph and merges the [S, Q, k] results once.
 
-Here the S shards are that same leading axis of stacked tensors, on one
-device: ``ShardedIndex.shard(si)`` is a ``DeviceGraph`` of views of slice
-``si`` (contiguous, no copy), and every per-shard step of the reference's
-vmap is a loop over those views through the port's single-graph functions:
+Here the shards a process holds are that same leading axis of stacked
+tensors, on one device: ``ShardedIndex.shard(si)`` is a ``DeviceGraph`` of
+views of slice ``si`` (contiguous, no copy), and every per-shard step of the
+reference's vmap is a loop over those views through the port's
+single-graph functions:
 
 - search: ``graph/search.py::search_batched`` per shard (K1 for f32/bf16
   rows, the decode kernel in PQ shards' entry scans, K4 in hamming shards'
@@ -26,9 +28,23 @@ vmap is a loop over those views through the port's single-graph functions:
   a common size, ramped rounds with -1 lanes for shorter shards) is the
   reference's, so both packages build the same graphs.
 
-Per-shard ``entry``, ``max_level`` and ``num_nodes`` are host ints, so a
-search never reads them from the device. A PQ index keeps one codebook and
-rotation (the reference tiles the same codebook S times).
+Ranks (``init_multihost``, then ``make_mesh(n_shards, data)`` over the
+group): the world is a (data x shard) grid, rank = d * P + p with P = world
+/ data shard ranks; rank (d, p) holds the contiguous block of shards
+p*S/P .. (p+1)*S/P - 1 (the reference's ``devs.reshape(data, n_shards)``),
+and the ranks of one shard column hold the same shards. Every rank gets the
+same inputs and builds, inserts and encodes only its own shards from the
+whole host plan, so the graphs equal a one-process build's. A search takes
+the rank's Q/D slice of the queries, runs its shards, makes one all-gather
+of the [S/P, Q/D, k] results over its data row (rank order is shard order,
+so the merge orders ties as one process does) and one over its shard
+column, and every rank returns the whole [Q, k]. With no process group
+there is one rank and no collective.
+
+Per-shard ``entry``, ``max_level`` and ``num_nodes`` are host ints of the
+rank's shards, so a search never reads them from the device. A PQ index
+keeps one codebook and rotation (the reference tiles the same codebook S
+times).
 """
 
 from __future__ import annotations
@@ -49,6 +65,8 @@ from lantern_tpu_torch.graph.device import (
     upper_ids_from_slots,
 )
 from lantern_tpu_torch.native import LMAX
+from lantern_tpu_torch.parallel import _dist
+from lantern_tpu_torch.parallel._dist import init_multihost  # noqa: F401
 
 _INF = float("inf")
 # levels with more nodes than this are subsampled for the upper pools (the
@@ -58,46 +76,95 @@ UPPER_POOL_CAP = 32768
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The (data, shard) layout: ``shape == {"data": 1, "shard": S}`` and
-    the one device that holds every shard."""
+    """The (data, shard) layout: ``shape == {"data": D, "shard": S}``, the
+    device of this rank, and where this rank sits in the grid.
+
+    ``rank`` = ``data_row`` * P + ``shard_col`` of ``world`` ranks (P =
+    world / D shard ranks); ``local_shards`` are the global ids of the
+    shards it holds; ``row_group`` is its data row (the ranks holding every
+    shard once) and ``col_group`` its shard column (the ranks holding its
+    shards). Without a process group: one rank, every shard, no groups.
+    """
 
     shape: dict
     device: torch.device
+    rank: int = 0
+    world: int = 1
+    data_row: int = 0
+    shard_col: int = 0
+    local_shards: tuple = ()
+    row_group: object = None
+    col_group: object = None
+
+    @property
+    def distributed(self) -> bool:
+        return self.row_group is not None
+
+    @property
+    def shard_ranks(self) -> int:
+        return self.world // self.shape["data"]
 
 
 def make_mesh(n_shards: int | None = None, data: int = 1,
               device: str | torch.device | None = None) -> Mesh:
-    """The layout of S shards on ``device`` (default cuda; raises without a
-    card unless the CPU is named).
+    """The layout of S shards over this process group's ranks (or over
+    this process alone when there is no group), on ``device`` (default: the
+    card ``init_multihost`` chose, else cuda; raises without a card unless
+    the CPU is named).
 
-    Unlike the reference's mesh (one shard per device, so ``n_shards`` is
-    bounded by the device count), the S shards are a leading tensor axis on
-    one device, so any ``n_shards >= 1`` is allowed. ``n_shards=None`` means
-    one shard per visible card, as in the reference (1 on the CPU).
-    ``data > 1`` (the reference's query split over devices) raises: it
-    comes with placement over several cards.
+    Unlike the reference's mesh (one shard per device), a rank's shards are
+    a leading tensor axis of one device, so S only has to be a multiple of
+    the P = world / ``data`` shard ranks; ``world`` must be a multiple of
+    ``data``. ``n_shards=None`` means one shard per shard rank (with no
+    group: one per visible card, as in the reference; 1 on the CPU).
     """
-    dev = resolve_device(device)
-    if data != 1:
-        raise ValueError(f"data={data}: the query axis needs several cards; "
-                         "one card holds data=1")
+    if _dist.distributed():
+        import torch.distributed as dist
+
+        rank, world = dist.get_rank(), dist.get_world_size()
+        dev = resolve_device(device if device is not None
+                             else _dist.group_device())
+    else:
+        rank, world = 0, 1
+        dev = resolve_device(device)
+    if data < 1 or world % data:
+        raise ValueError(f"data={data} does not divide the {world} rank(s)")
+    shard_ranks = world // data
     if n_shards is None:
-        n_shards = torch.cuda.device_count() if dev.type == "cuda" else 1
+        if _dist.distributed():
+            n_shards = shard_ranks
+        else:
+            n_shards = torch.cuda.device_count() if dev.type == "cuda" else 1
     if n_shards < 1:
         raise ValueError(f"n_shards={n_shards}; need at least one shard")
-    return Mesh(shape={"data": 1, "shard": int(n_shards)}, device=dev)
+    if n_shards % shard_ranks:
+        raise ValueError(f"n_shards={n_shards} is not a multiple of the "
+                         f"{shard_ranks} shard rank(s)")
+    d, p = divmod(rank, shard_ranks)
+    per = n_shards // shard_ranks
+    row = col = None
+    if _dist.distributed():
+        row, col = _dist.layout_groups(data, shard_ranks, d, p)
+    return Mesh(shape={"data": data, "shard": int(n_shards)}, device=dev,
+                rank=rank, world=world, data_row=d, shard_col=p,
+                local_shards=tuple(range(p * per, (p + 1) * per)),
+                row_group=row, col_group=col)
 
 
 @dataclasses.dataclass
 class ShardedIndex:
-    """S subgraphs stacked on a leading shard axis of one device's tensors.
+    """This rank's subgraphs stacked on a leading shard axis of one
+    device's tensors (all S of them without a process group).
 
-    Fields are a ``DeviceGraph``'s with the axis in front (``vectors [S,
-    cap, ...]``, ``neighbors0 [S, cap+1, m0]``, ``upper_neighbors [S, ucap,
-    LMAX, m]``, ``upper_ids [S, ucap]``, ...), plus ``global_ids [S, cap+1]``
-    int32 (local slot -> global id, -1 at padding), the PQ shards' optional
-    bf16 rerank rows ``[S, cap, d]`` and their f32 ``rerank_sqn [S, cap]``.
-    Padding slots (shards shorter than the longest) are tombstoned.
+    Fields are a ``DeviceGraph``'s with the axis in front (``vectors [L,
+    cap, ...]`` for the L = S/P local shards, ``neighbors0 [L, cap+1, m0]``,
+    ``upper_neighbors [L, ucap, LMAX, m]``, ``upper_ids [L, ucap]``, ...),
+    plus ``global_ids [L, cap+1]`` int32 (local slot -> global id, -1 at
+    padding), the PQ shards' optional bf16 rerank rows ``[L, cap, d]`` and
+    their f32 ``rerank_sqn [L, cap]``. ``cap`` and ``ucap`` are the largest
+    over all S shards, so every rank's tables have one shape. Padding slots
+    (shards shorter than the longest) are tombstoned. ``mesh`` places the
+    index: ``shard_ids`` are its shards' global ids.
     """
 
     vectors: torch.Tensor
@@ -123,10 +190,22 @@ class ShardedIndex:
     dim: int = 0
     metric: int = int(Metric.L2SQ)
     quant: int = int(QuantKind.F32)
+    mesh: Mesh | None = None
 
     @property
     def n_shards(self) -> int:
+        """S, the shards of the whole index."""
+        return self.n_local if self.mesh is None else self.mesh.shape["shard"]
+
+    @property
+    def n_local(self) -> int:
+        """The shards this rank holds (the leading axis)."""
         return self.vectors.shape[0]
+
+    @property
+    def shard_ids(self) -> tuple:
+        return (tuple(range(self.n_local)) if self.mesh is None
+                else self.mesh.local_shards)
 
     @property
     def cap(self) -> int:
@@ -137,7 +216,8 @@ class ShardedIndex:
         return self.vectors.device
 
     def shard(self, si: int) -> DeviceGraph:
-        """Shard ``si`` as a DeviceGraph of views (no copy)."""
+        """Local shard ``si`` (global shard ``shard_ids[si]``) as a
+        DeviceGraph of views (no copy)."""
         return DeviceGraph(
             vectors=self.vectors[si],
             sq_norms=self.sq_norms[si],
@@ -182,6 +262,9 @@ def _check_mesh(index: ShardedIndex, mesh: Mesh) -> None:
     if mesh.shape["shard"] != index.n_shards:
         raise ValueError(f"index has {index.n_shards} shards but mesh shard "
                          f"axis is {mesh.shape['shard']}")
+    if mesh.local_shards != index.shard_ids:
+        raise ValueError(f"this rank holds shards {index.shard_ids} but the "
+                         f"mesh places {mesh.local_shards} here")
 
 
 def build_sharded(
@@ -194,8 +277,9 @@ def build_sharded(
     nthreads: int = 0,
 ) -> ShardedIndex:
     """Partition ``vectors`` round-robin over the shards, build one host
-    subgraph per shard (shard ``si`` with seed ``seed + si``), then stack
-    them on the mesh's device."""
+    subgraph per shard of this rank (shard ``si`` with seed ``seed + si``),
+    then stack them on the mesh's device. Every rank is given the same
+    ``vectors``."""
     n = len(vectors)
     s = mesh.shape["shard"]
     if n < s:
@@ -209,7 +293,7 @@ def build_sharded(
         from lantern_tpu_torch.graph.host_build import HostHnsw as Engine
 
     shards, gids = [], []
-    for si in range(s):
+    for si in mesh.local_shards:
         idx = np.arange(si, n, s)
         eng = Engine(params, capacity=len(idx), seed=seed + si)
         kw = {"nthreads": nthreads} if use_native else {}
@@ -220,11 +304,13 @@ def build_sharded(
 
 
 def _stack_engines(shards, gids, params: HnswParams, mesh: Mesh) -> ShardedIndex:
-    """Stack per-shard host engines at a common padded capacity (padding
-    slots tombstoned, global id -1)."""
+    """Stack this rank's per-shard host engines at the capacity common to
+    all S shards (padding slots tombstoned, global id -1)."""
     metric = Metric(params.metric)
     max_n = max(eng.n for eng in shards)
     max_u = max(max(eng.n_upper, 1) for eng in shards)
+    if mesh.distributed:  # two ints, so every rank's tables take one shape
+        max_n, max_u = _dist.all_reduce_max([max_n, max_u], None, mesh.device)
     width = shards[0].vectors.shape[1]
     s = len(shards)
     vec_np = np.zeros((s, max_n, width), shards[0].vectors.dtype)
@@ -270,6 +356,7 @@ def _stack_engines(shards, gids, params: HnswParams, mesh: Mesh) -> ShardedIndex
         m=params.m,
         dim=params.dim,
         metric=int(metric),
+        mesh=mesh,
     )
 
 
@@ -289,18 +376,58 @@ def _to_global(index: ShardedIndex, si: int, ids: torch.Tensor) -> torch.Tensor:
     return torch.where(ids >= 0, gids[safe], -1)
 
 
-def _per_shard(index: ShardedIndex, exclude_gids, local):
-    """Run ``local(si, graph, exclude_row)`` -> (d, ids, labels) [Q, k] on
-    every shard; returns the stacked (d, global ids, labels) [S, Q, k]."""
+def _query_slice(index: ShardedIndex, q: torch.Tensor) -> torch.Tensor:
+    """This rank's contiguous Q/D slice of the queries (all of them when
+    D = 1)."""
+    mesh = index.mesh
+    d = 1 if mesh is None else mesh.shape["data"]
+    if d == 1:
+        return q
+    if q.shape[0] % d:
+        raise ValueError(f"{q.shape[0]} queries do not split over the "
+                         f"{d} rows of the data axis")
+    per = q.shape[0] // d
+    return q[mesh.data_row * per:(mesh.data_row + 1) * per]
+
+
+def _pack(d, gid, labels) -> torch.Tensor:
+    """(f32 dists, int32 gids, int64 labels) [..., k] -> int32 [..., k, 4]:
+    16 bytes an entry, one tensor for one all-gather."""
+    return torch.cat([d.to(torch.float32).contiguous().view(torch.int32)[..., None],
+                      gid.to(torch.int32)[..., None],
+                      labels.contiguous().view(torch.int32).reshape(
+                          labels.shape + (2,))], -1)
+
+
+def _unpack(p: torch.Tensor):
+    return (p[..., 0].contiguous().view(torch.float32), p[..., 1].contiguous(),
+            p[..., 2:].contiguous().view(torch.int64)[..., 0])
+
+
+def _per_shard(index: ShardedIndex, queries, exclude_gids, k: int, local):
+    """Run ``local(si, graph, q, exclude_row)`` -> (d, ids, labels) [q, k]
+    on this rank's shards for its slice q of the queries, then merge: one
+    all-gather of the [L, q, k] results over the data row, the top-k merge
+    in global shard order, one all-gather of the [q, k] merge over the
+    shard column. Returns (d [Q, k] f32, global ids [Q, k] int32, labels
+    [Q, k] int64) on every rank."""
+    q = _query_slice(index, _queries(index, queries))
     excl = _as_local_masks(index, exclude_gids)
     ds, gs, ls = [], [], []
-    for si in range(index.n_shards):
-        d, ids, lab = local(si, index.shard(si),
+    for si in range(index.n_local):
+        d, ids, lab = local(si, index.shard(si), q,
                             None if excl is None else excl[si])
         ds.append(d)
         gs.append(_to_global(index, si, ids))
         ls.append(lab)
-    return torch.stack(ds), torch.stack(gs), torch.stack(ls)
+    d, g, lab = torch.stack(ds), torch.stack(gs), torch.stack(ls)
+    mesh = index.mesh
+    if mesh is None or not mesh.distributed:
+        return _merge_topk(d, g, lab, k)
+    d, g, lab = _unpack(_dist.all_gather_cat(_pack(d, g, lab), mesh.row_group,
+                                             merge=True))
+    out = _merge_topk(d, g, lab, k)
+    return _unpack(_dist.all_gather_cat(_pack(*out), mesh.col_group, merge=True))
 
 
 def search_sharded(
@@ -314,26 +441,26 @@ def search_sharded(
 ):
     """Every shard searches its subgraph, then one global top-k merge.
 
-    queries [Q, d] (int32 or uint32 words for hamming) -> (dists [Q, k] f32,
-    global ids [Q, k] int32, labels [Q, k] int64).
+    queries [Q, d] (int32 or uint32 words for hamming; the same on every
+    rank) -> (dists [Q, k] f32, global ids [Q, k] int32, labels [Q, k]
+    int64), the whole result on every rank.
 
-    ``exclude_gids``: a [n_global] bool mask indexed by global id, or the
-    [S, cap] per-shard masks of :func:`local_exclude_masks` (precompute
-    those once when one filter serves many searches).
+    ``exclude_gids``: a [n_global] bool mask indexed by global id, or this
+    rank's [L, cap] per-shard masks of :func:`local_exclude_masks`
+    (precompute those once when one filter serves many searches).
     """
     from lantern_tpu_torch.graph.search import search_batched
 
-    q = _queries(index, queries)
-
-    def local(si, graph, excl_row):
+    def local(si, graph, q, excl_row):
         return search_batched(graph, q, k=k, ef=ef, expand=expand,
                               max_iters=max_iters, exclude=excl_row)
 
-    return _merge_topk(*_per_shard(index, exclude_gids, local), k)
+    return _per_shard(index, queries, exclude_gids, k, local)
 
 
 def local_exclude_masks(index: ShardedIndex, exclude_gids) -> torch.Tensor:
-    """A [n_global] bool global-id mask -> [S, cap] local node masks.
+    """A [n_global] bool global-id mask -> [L, cap] node masks of this
+    rank's shards (no collective).
 
     Blank gid slots are always excluded (they hold no node); gids at or
     beyond the mask's length are NOT excluded (a shorter, stale mask
@@ -350,7 +477,7 @@ def local_exclude_masks(index: ShardedIndex, exclude_gids) -> torch.Tensor:
 
 
 def _as_local_masks(index: ShardedIndex, exclude_gids):
-    """None | [n_global] | [S, cap] -> None | [S, cap] local masks."""
+    """None | [n_global] | [L, cap] -> None | [L, cap] local masks."""
     if exclude_gids is None:
         return None
     exclude_gids = torch.as_tensor(exclude_gids, device=index.device).bool()
@@ -395,12 +522,11 @@ def flat_search_sharded(
     from lantern_tpu_torch.flat import flat_search_graph
 
     del recall_target
-    q = _queries(index, queries)
 
-    def local(si, graph, excl_row):
+    def local(si, graph, q, excl_row):
         return flat_search_graph(graph, q, k=k, exact=exact, exclude=excl_row)
 
-    return _merge_topk(*_per_shard(index, exclude_gids, local), k)
+    return _per_shard(index, queries, exclude_gids, k, local)
 
 
 def flat_search_sharded_rerank(
@@ -422,13 +548,12 @@ def flat_search_sharded_rerank(
             "flat_search_sharded_rerank needs rerank rows — quantize with "
             "keep_rerank=True"
         )
-    q = _queries(index, queries)
 
-    def local(si, graph, excl_row):
+    def local(si, graph, q, excl_row):
         return flat_search_graph_rerank(graph, index.rerank_rows[si], q, k=k,
                                         shortlist=shortlist, exclude=excl_row)
 
-    return _merge_topk(*_per_shard(index, exclude_gids, local), k)
+    return _per_shard(index, queries, exclude_gids, k, local)
 
 
 def quantize_sharded(
@@ -450,7 +575,9 @@ def quantize_sharded(
     - ``quant="i8"``: symmetric per-row int8 codes and f32 scales.
 
     The encode runs on the device; only the training sample goes to the
-    host.
+    host. Over ranks, the sample (the first rows of every shard) is
+    all-gathered in shard order, rank 0 trains and broadcasts the codebook
+    and rotation, so every rank holds the same bits; i8 is local.
     """
     from lantern_tpu_torch.graph.build_device import _pq_encode_rows
 
@@ -460,7 +587,8 @@ def quantize_sharded(
         raise ValueError("hamming shards are already bit-packed; no PQ/i8")
     if index.quant not in (int(QuantKind.F32), int(QuantKind.F16)):
         raise ValueError("index is already quantized")
-    s, cap, dim = index.vectors.shape
+    _, cap, dim = index.vectors.shape
+    s = index.n_shards
     dev = index.device
     p = index.params
 
@@ -472,18 +600,23 @@ def quantize_sharded(
             block = _host(index.vectors[:, :per].float())
             sample = np.concatenate(
                 [block[si, :max(1, min(per, index.num_nodes[si]))]
-                 for si in range(s)])
+                 for si in range(index.n_local)])
+            if mesh.distributed and mesh.data_row == 0:
+                sample = _dist.all_gather_rows(sample, mesh.row_group, dev)
             nsub = (p.effective_num_subvectors if p is not None
                     else max(1, dim // 4))
             ncent = p.num_centroids if p is not None else 256
-            codebook = train_codebook(sample, num_subvectors=nsub,
-                                      num_centroids=min(ncent, 256),
-                                      seed=seed, rotate=True, device=dev)
+            if mesh.rank == 0:
+                codebook = train_codebook(sample, num_subvectors=nsub,
+                                          num_centroids=min(ncent, 256),
+                                          seed=seed, rotate=True, device=dev)
+            if mesh.distributed:
+                codebook = _dist.broadcast_object(codebook, dev)
         cent = torch.from_numpy(np.array(codebook.centroids, np.float32)).to(dev)
         rot = (None if codebook.rotation is None else
                torch.from_numpy(np.array(codebook.rotation, np.float32)).to(dev))
         codes = torch.stack([_pq_encode_rows(index.vectors[si].float(), cent, rot)
-                             for si in range(s)])
+                             for si in range(index.n_local)])
         new_params = (dataclasses.replace(
             p, pq=True, num_subvectors=codebook.num_subvectors,
             num_centroids=codebook.num_centroids) if p is not None else None)
@@ -592,7 +725,9 @@ def build_sharded_device(
     flat_until: int | None = None,
 ) -> ShardedIndex:
     """Build every shard's subgraph on the device by the insert rounds of
-    ``graph/build_device.py``, each round run over every shard.
+    ``graph/build_device.py``, each round run over every shard of this rank.
+    Every rank is given the same ``vectors`` and draws the whole host plan;
+    no collective.
 
     ``candidates``: "flat" (default) pools from a masked flat scan of each
     shard's built prefix; "beam" from a beam search of the partial
@@ -625,34 +760,42 @@ def build_sharded_device(
     nmax = max(counts)
     batch = min(batch, nmax)
 
+    # the whole plan: levels and upper slots of every shard, then the level
+    # lists, from one generator in shard order; this rank keeps its shards'
     rng = np.random.default_rng(seed)
-    lvl_np = np.zeros((s, nmax), np.int32)
-    slot_np = np.full((s, nmax), -1, np.int32)
-    vec_np = np.zeros((s, nmax, dim), np_dtype)
-    gid_np = np.full((s, nmax + 1), -1, np.int32)
-    lab_np = np.zeros((s, nmax), np.uint64)
+    lvl_all = np.zeros((s, nmax), np.int32)
+    slot_all = np.full((s, nmax), -1, np.int32)
     n_upper_max = 1
-    for si, ids in enumerate(part):
-        ni = len(ids)
-        vec_np[si, :ni] = vectors[ids]
-        gid_np[si, :ni] = ids
-        lab_np[si, :ni] = labels[ids]
+    for si in range(s):
+        ni = counts[si]
         u = np.maximum(rng.random(ni), 1e-300)
         lv = np.minimum((-np.log(u) * params.level_lambda).astype(np.int64), LMAX)
-        lvl_np[si, :ni] = lv
+        lvl_all[si, :ni] = lv
         has = lv >= 1
-        slot_np[si, :ni][has] = np.arange(int(has.sum()), dtype=np.int32)
+        slot_all[si, :ni][has] = np.arange(int(has.sum()), dtype=np.int32)
         n_upper_max = max(n_upper_max, int(has.sum()))
     ucap = n_upper_max + 1  # + dummy slot
-    level_arrays = _level_arrays(lvl_np, [nmax] * s, rng)
+    loc = list(mesh.local_shards)
+    level_arrays = [a[loc] for a in _level_arrays(lvl_all, [nmax] * s, rng)]
+    lvl_np, slot_np = lvl_all[loc], slot_all[loc]
+
+    sl = len(loc)
+    vec_np = np.zeros((sl, nmax, dim), np_dtype)
+    gid_np = np.full((sl, nmax + 1), -1, np.int32)
+    lab_np = np.zeros((sl, nmax), np.uint64)
+    for j, si in enumerate(loc):
+        ids = part[si]
+        vec_np[j, :len(ids)] = vectors[ids]
+        gid_np[j, :len(ids)] = ids
+        lab_np[j, :len(ids)] = labels[ids]
 
     if metric == Metric.HAMMING:
-        sq = np.zeros((s, nmax), np.float32)  # unused by hamming distances
+        sq = np.zeros((sl, nmax), np.float32)  # unused by hamming distances
     else:
         sq = np.einsum("snd,snd->sn", vec_np, vec_np).astype(np.float32)
     first = next(ramped_batches(nmax, batch))[1]
-    entry0 = [int(np.argmax(lvl_np[si, :min(first, counts[si])])) for si in range(s)]
-    maxl0 = [int(lvl_np[si, :min(first, counts[si])].max()) for si in range(s)]
+    entry0 = [int(np.argmax(lvl_all[si, :min(first, counts[si])])) for si in loc]
+    maxl0 = [int(lvl_all[si, :min(first, counts[si])].max()) for si in loc]
     vec_t = _t(vec_np, torch.device("cpu"))
     if store == "bf16" and metric != Metric.HAMMING:
         # rounded on the host, so the device never holds the f32 table
@@ -660,24 +803,24 @@ def build_sharded_device(
     tables = {
         "vectors": vec_t.to(dev),
         "sq_norms": _t(sq, dev),
-        "neighbors0": torch.full((s, nmax + 1, 2 * m), -1, dtype=torch.int32,
+        "neighbors0": torch.full((sl, nmax + 1, 2 * m), -1, dtype=torch.int32,
                                  device=dev),
-        "upper_neighbors": torch.full((s, ucap, LMAX, m), -1, dtype=torch.int32,
-                                      device=dev),
+        "upper_neighbors": torch.full((sl, ucap, LMAX, m), -1,
+                                      dtype=torch.int32, device=dev),
         "upper_slot": _t(slot_np, dev),
         "levels": _t(lvl_np, dev),
     }
     del vec_t
-    states = _shard_states(tables, lvl_np, entry0, maxl0, [0] * s, m,
+    states = _shard_states(tables, lvl_np, entry0, maxl0, [0] * sl, m,
                            params.dim, metric, level_arrays)
 
     def rounds():
         for pos, live, size in ramped_batches(nmax, batch):
-            ids = np.full((s, size), -1, np.int32)
-            for si in range(s):
+            ids = np.full((sl, size), -1, np.int32)
+            for j, si in enumerate(loc):
                 hi = min(pos + live, counts[si])
                 if hi > pos:
-                    ids[si, :hi - pos] = np.arange(pos, hi, dtype=np.int32)
+                    ids[j, :hi - pos] = np.arange(pos, hi, dtype=np.int32)
             yield pos, ids
 
     _run_rounds(states, rounds(), params.ef_construction, max_in,
@@ -688,18 +831,19 @@ def build_sharded_device(
         **tables,
         labels=_t(lab_np, dev),
         deleted=_t(gid_np[:, :nmax] < 0, dev),  # padding slots tombstoned
-        upper_ids=_t(np.stack([upper_ids_from_slots(slot_np[si], ucap)
-                               for si in range(s)]), dev),
+        upper_ids=_t(np.stack([upper_ids_from_slots(slot_np[j], ucap)
+                               for j in range(sl)]), dev),
         global_ids=_t(gid_np, dev),
         entry=tuple(st.entry for st, _, _ in states),
         max_level=tuple(st.max_level for st, _, _ in states),
-        num_nodes=tuple(counts),
+        num_nodes=tuple(counts[si] for si in loc),
         params=params,
         m=m,
         dim=params.dim,
         metric=int(metric),
         quant=int(QuantKind.F16 if tables["vectors"].dtype == torch.bfloat16
                   else QuantKind.F32),
+        mesh=mesh,
     )
 
 
@@ -780,35 +924,48 @@ def save_sharded(index: ShardedIndex, dir_path: str):
     ``shard_<i>.ldb`` (standard snapshots) and ``shard_<i>.gids.npy`` (local
     slot -> global id) per shard. Quantised indexes save their source rows
     and the codebook in every shard file; the manifest records the quant
-    kind, and ``load_sharded`` encodes again."""
+    kind, and ``load_sharded`` encodes again.
+
+    Over ranks, the ranks of data row 0 write their own shards' files; after
+    a barrier rank 0 writes the manifest, and a second barrier returns every
+    rank with the directory complete. The files are a one-process save's."""
     from lantern_tpu_torch.storage.snapshot import save_snapshot
 
     if index.params is None:
         raise ValueError("ShardedIndex has no params; cannot save")
-    os.makedirs(dir_path, exist_ok=True)
-    s = index.n_shards
-    gids = _host(index.global_ids)
-    codebook = _sharded_codebook(index)
-    for si in range(s):
-        save_snapshot(_ShardView(index, si),
-                      os.path.join(dir_path, f"shard_{si}.ldb"),
-                      pq_codebook=codebook)
-        np.save(os.path.join(dir_path, f"shard_{si}.gids.npy"), gids[si])
-    manifest = {"version": 2, "n_shards": s,
-                "dim": index.params.dim, "m": index.params.m,
-                "metric": int(index.params.metric),
-                "quant": _quant_kind(index),
-                "keep_rerank": index.rerank_rows is not None}
-    tmp = os.path.join(dir_path, "manifest.json.tmp")
-    with open(tmp, "w") as f:
-        json.dump(manifest, f)
-    os.replace(tmp, os.path.join(dir_path, "manifest.json"))
+    mesh = index.mesh
+    distributed = mesh is not None and mesh.distributed
+    if not distributed or mesh.data_row == 0:
+        os.makedirs(dir_path, exist_ok=True)
+        gids = _host(index.global_ids)
+        codebook = _sharded_codebook(index)
+        for j, si in enumerate(index.shard_ids):
+            save_snapshot(_ShardView(index, j),
+                          os.path.join(dir_path, f"shard_{si}.ldb"),
+                          pq_codebook=codebook)
+            np.save(os.path.join(dir_path, f"shard_{si}.gids.npy"), gids[j])
+    if distributed:
+        _dist.barrier(mesh.device)
+    if not distributed or mesh.rank == 0:
+        manifest = {"version": 2, "n_shards": index.n_shards,
+                    "dim": index.params.dim, "m": index.params.m,
+                    "metric": int(index.params.metric),
+                    "quant": _quant_kind(index),
+                    "keep_rerank": index.rerank_rows is not None}
+        tmp = os.path.join(dir_path, "manifest.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, os.path.join(dir_path, "manifest.json"))
+    if distributed:
+        _dist.barrier(mesh.device)
 
 
 def load_sharded(dir_path: str, mesh: Mesh, engine: str = "native") -> ShardedIndex:
     """Load a ``save_sharded`` directory onto the mesh's device (its shard
-    count must equal the mesh's); quantised shards are encoded again from
-    their saved source rows with the saved codebook."""
+    count must equal the mesh's; each rank reads only its own shards, so a
+    directory written by any number of ranks loads on any other);
+    quantised shards are encoded again from their saved source rows with
+    the saved codebook."""
     from lantern_tpu_torch.storage.snapshot import load_snapshot
 
     with open(os.path.join(dir_path, "manifest.json")) as f:
@@ -819,7 +976,7 @@ def load_sharded(dir_path: str, mesh: Mesh, engine: str = "native") -> ShardedIn
                          f"{mesh.shape['shard']}")
     shards, gids = [], []
     params = codebook = None
-    for si in range(s):
+    for si in mesh.local_shards:
         eng, cb = load_snapshot(os.path.join(dir_path, f"shard_{si}.ldb"),
                                 engine=engine, return_codebook=True)
         params = eng.p
@@ -889,6 +1046,10 @@ def insert_sharded(
     encoded again (old codes come back unchanged; the rerank copy takes the
     new rows as given); i8 shards over their dequantised rows; bf16 tables
     stay bf16; hamming (b1) shards over their words.
+
+    Over ranks, every rank is given the whole batch and keeps the rows its
+    shards own; one all-gather over the data row brings every shard's
+    levels and counts (4 bytes a row), so each rank draws the whole plan.
     """
     from lantern_tpu_torch.graph.build_device import _pq_decode_rows, _pq_encode_rows
 
@@ -928,10 +1089,20 @@ def insert_sharded(
         vectors = cb_c[np.arange(cb_c.shape[0])[None, :], codes_new].reshape(
             b, width).astype(np.float32)
 
-    # small reads: per-shard upper-slot highwater and the largest global id
-    nn = np.asarray(index.num_nodes, np.int64)
-    nup = np.maximum(_host(index.upper_slot.amax(1)).astype(np.int64) + 1, 0)
-    n_global = int(_host(index.global_ids.max()))
+    # small reads: per-shard node counts, upper-slot highwater and largest
+    # global id, and the levels (4 bytes a row), of every shard
+    loc = list(index.shard_ids)
+    sl = index.n_local
+    meta = np.stack([np.asarray(index.num_nodes, np.int64),
+                     np.maximum(_host(index.upper_slot.amax(1)).astype(np.int64)
+                                + 1, 0),
+                     _host(index.global_ids.amax(1)).astype(np.int64)], 1)
+    lvl_old = _host(index.levels)
+    if mesh.distributed:
+        meta = _dist.all_gather_rows(meta, mesh.row_group, dev)
+        lvl_old = _dist.all_gather_rows(lvl_old, mesh.row_group, dev)
+    nn, nup = meta[:, 0], meta[:, 1]
+    n_global = int(meta[:, 2].max())
     new_gids = np.arange(n_global + 1, n_global + 1 + b)
     labels = (new_gids.astype(np.uint64) if labels is None
               else np.asarray(labels, np.uint64))
@@ -949,39 +1120,42 @@ def insert_sharded(
     lv_all = np.minimum((-np.log(u) * params.level_lambda).astype(np.int64),
                         LMAX).astype(np.int32)
 
-    rows_np = np.zeros((s, bpad, width), np_dtype)
-    sq_np = np.zeros((s, bpad), np.float32)
+    # levels of every shard's block (for the plan), the rest for this
+    # rank's shards only
     lvl_blk = np.zeros((s, bpad), np.int32)
-    slot_blk = np.full((s, bpad), -1, np.int32)
-    lab_blk = np.zeros((s, bpad), np.uint64)
-    gid_blk = np.full((s, bpad), -1, np.int32)
-    dele_blk = np.ones((s, bpad), bool)  # lanes beyond b_si stay tombstoned
     add_si = np.zeros(s, np.int64)
+    rows_np = np.zeros((sl, bpad, width), np_dtype)
+    sq_np = np.zeros((sl, bpad), np.float32)
+    slot_blk = np.full((sl, bpad), -1, np.int32)
+    lab_blk = np.zeros((sl, bpad), np.uint64)
+    gid_blk = np.full((sl, bpad), -1, np.int32)
+    dele_blk = np.ones((sl, bpad), bool)  # lanes beyond b_si stay tombstoned
     with_rerank = quant_mode == "pq" and index.rerank_rows is not None
     if with_rerank:
-        true_blk = np.zeros((s, bpad, width), np.float32)
-        true_sq_blk = np.zeros((s, bpad), np.float32)
+        true_blk = np.zeros((sl, bpad, width), np.float32)
+        true_sq_blk = np.zeros((sl, bpad), np.float32)
     for si in range(s):
         mine = owner == si
         k = int(b_si[si])
-        if k == 0:
-            continue
-        rows_np[si, :k] = vectors[mine]
-        if metric != Metric.HAMMING:
-            vf = rows_np[si, :k].astype(np.float32)
-            sq_np[si, :k] = np.einsum("nd,nd->n", vf, vf)
-        if with_rerank:
-            true_blk[si, :k] = true_rows[mine]
-            true_sq_blk[si, :k] = np.einsum("nd,nd->n", true_blk[si, :k],
-                                            true_blk[si, :k])
         lvs = lv_all[mine]
         lvl_blk[si, :k] = lvs
         has = lvs >= 1
         add_si[si] = int(has.sum())
-        slot_blk[si, :k][has] = nup[si] + np.arange(add_si[si], dtype=np.int32)
-        lab_blk[si, :k] = labels[mine]
-        gid_blk[si, :k] = new_gids[mine]
-        dele_blk[si, :k] = False
+        if k == 0 or si not in loc:
+            continue
+        j = loc.index(si)
+        rows_np[j, :k] = vectors[mine]
+        if metric != Metric.HAMMING:
+            vf = rows_np[j, :k].astype(np.float32)
+            sq_np[j, :k] = np.einsum("nd,nd->n", vf, vf)
+        if with_rerank:
+            true_blk[j, :k] = true_rows[mine]
+            true_sq_blk[j, :k] = np.einsum("nd,nd->n", true_blk[j, :k],
+                                           true_blk[j, :k])
+        slot_blk[j, :k][has] = nup[si] + np.arange(add_si[si], dtype=np.int32)
+        lab_blk[j, :k] = labels[mine]
+        gid_blk[j, :k] = new_gids[mine]
+        dele_blk[j, :k] = False
 
     new_cap = cap
     while new_cap < int(need.max()) or new_cap < int(nn.max()) + bpad:
@@ -991,65 +1165,66 @@ def insert_sharded(
 
     # metadata for the per-level candidate pools (4 bytes a row)
     lvl_full = np.zeros((s, new_cap), np.int32)
-    lvl_full[:, :cap] = _host(index.levels)
+    lvl_full[:, :cap] = lvl_old
     for si in range(s):
         lvl_full[si, nn[si]:nn[si] + bpad] = lvl_blk[si]
         lvl_full[si, need[si]:] = 0  # pad lanes past the live set
-    level_arrays = _level_arrays(lvl_full, need, rng)
+    level_arrays = [a[loc] for a in _level_arrays(lvl_full, need, rng)]
+    lvl_full, nn_loc = lvl_full[loc], nn[loc]
 
     # ---- grow and scatter on the device ----
     if quant_mode == "pq":
         cb_dev = index.pq_codebook
-        base = torch.stack([_pq_decode_rows(index.vectors[si], cb_dev)
-                            for si in range(s)])
+        base = torch.stack([_pq_decode_rows(index.vectors[j], cb_dev)
+                            for j in range(sl)])
     elif quant_mode == "i8":
         base = index.vectors.float() * index.vec_scales[..., None]
     else:
         base = index.vectors
     vec2 = _grown(base, new_cap, 0)
-    _put_blocks(vec2, nn, _t(rows_np, dev).to(vec2.dtype))
+    _put_blocks(vec2, nn_loc, _t(rows_np, dev).to(vec2.dtype))
     del base
     sq2 = _grown(index.sq_norms, new_cap, 0)
-    _put_blocks(sq2, nn, _t(sq_np, dev))
+    _put_blocks(sq2, nn_loc, _t(sq_np, dev))
     # the old dummy row at cap goes; fresh -1 rows and a new dummy follow
     nbr2 = torch.cat([index.neighbors0[:, :cap],
-                      torch.full((s, new_cap + 1 - cap, 2 * m), -1,
+                      torch.full((sl, new_cap + 1 - cap, 2 * m), -1,
                                  dtype=torch.int32, device=dev)], 1)
     # upper adjacency: each shard's real slots only (rows past its count
     # are blanks or the build's dummy), grown to ucap_new
     real = (torch.arange(ucap_old, device=dev)[None, :]
-            < _t(nup, dev)[:, None])
+            < _t(nup[loc], dev)[:, None])
     up2 = _grown(torch.where(real[:, :, None, None], index.upper_neighbors, -1),
                  ucap_new, -1)
     uslot2 = _grown(index.upper_slot, new_cap, -1)
-    _put_blocks(uslot2, nn, _t(slot_blk, dev))
+    _put_blocks(uslot2, nn_loc, _t(slot_blk, dev))
     lvl2 = _grown(index.levels, new_cap, 0)
-    _put_blocks(lvl2, nn, _t(lvl_blk, dev))
+    _put_blocks(lvl2, nn_loc, _t(lvl_blk[loc], dev))
     lab2 = _grown(index.labels, new_cap, 0)
-    _put_blocks(lab2, nn, _t(lab_blk, dev))
+    _put_blocks(lab2, nn_loc, _t(lab_blk, dev))
     dele2 = _grown(index.deleted, new_cap, True)
-    _put_blocks(dele2, nn, _t(dele_blk, dev))
+    _put_blocks(dele2, nn_loc, _t(dele_blk, dev))
     gid2 = torch.cat([index.global_ids[:, :cap],
-                      torch.full((s, new_cap + 1 - cap), -1, dtype=torch.int32,
+                      torch.full((sl, new_cap + 1 - cap), -1, dtype=torch.int32,
                                  device=dev)], 1)
-    _put_blocks(gid2, nn, _t(gid_blk, dev))
+    _put_blocks(gid2, nn_loc, _t(gid_blk, dev))
 
     # ---- the insert rounds ----
     tables = {"vectors": vec2, "sq_norms": sq2, "neighbors0": nbr2,
               "upper_neighbors": up2, "upper_slot": uslot2, "levels": lvl2}
-    states = _shard_states(tables, lvl_full, index.entry, index.max_level, nn,
-                           m, index.dim, metric, level_arrays)
+    states = _shard_states(tables, lvl_full, index.entry, index.max_level,
+                           nn_loc, m, index.dim, metric, level_arrays)
     flat_cand = (candidates == "flat"
                  or (candidates == "hybrid" and int(nn.min()) < flat_until))
 
     def rounds():
         for pos in range(0, bpad, batch):
             size = min(batch, bpad - pos)
-            ids = np.full((s, size), -1, np.int32)
-            for si in range(s):
+            ids = np.full((sl, size), -1, np.int32)
+            for j, si in enumerate(loc):
                 hi = min(pos + size, int(b_si[si]))
                 if hi > pos:
-                    ids[si, :hi - pos] = nn[si] + np.arange(pos, hi, dtype=np.int32)
+                    ids[j, :hi - pos] = nn[si] + np.arange(pos, hi, dtype=np.int32)
             yield pos, ids
 
     _run_rounds(states, rounds(), params.ef_construction, max_in,
@@ -1060,38 +1235,40 @@ def insert_sharded(
     new_rerank, new_rsqn = index.rerank_rows, index.rerank_sqn
     if quant_mode == "pq":
         # rows already live in the rotated space: no rotation here
-        out_vecs = torch.stack([_pq_encode_rows(vec2[si], index.pq_codebook)
-                                for si in range(s)])
+        out_vecs = torch.stack([_pq_encode_rows(vec2[j], index.pq_codebook)
+                                for j in range(sl)])
         if with_rerank:
             new_rerank = _grown(index.rerank_rows, new_cap, 0)
-            _put_blocks(new_rerank, nn, _t(true_blk, dev).to(new_rerank.dtype))
+            _put_blocks(new_rerank, nn_loc,
+                        _t(true_blk, dev).to(new_rerank.dtype))
             new_rsqn = _grown(index.rerank_sqn, new_cap, 0)
-            _put_blocks(new_rsqn, nn, _t(true_sq_blk, dev))
+            _put_blocks(new_rsqn, nn_loc, _t(true_sq_blk, dev))
     elif quant_mode == "i8":
         from lantern_tpu_torch.quant.scalar import quantize_i8
 
         out_vecs, out_scales = quantize_i8(vec2)
 
     old_uids = _host(index.upper_ids)
-    uid_np = np.full((s, ucap_new), -1, np.int32)
-    for si in range(s):
-        uid_np[si, :nup[si]] = old_uids[si, :nup[si]]
-        has = slot_blk[si] >= 0
-        uid_np[si][slot_blk[si][has]] = nn[si] + np.nonzero(has)[0].astype(np.int32)
+    uid_np = np.full((sl, ucap_new), -1, np.int32)
+    for j, si in enumerate(loc):
+        uid_np[j, :nup[si]] = old_uids[j, :nup[si]]
+        has = slot_blk[j] >= 0
+        uid_np[j][slot_blk[j][has]] = nn[si] + np.nonzero(has)[0].astype(np.int32)
     return dataclasses.replace(
         index, vectors=out_vecs, sq_norms=sq2, neighbors0=nbr2,
         upper_neighbors=up2, upper_slot=uslot2, levels=lvl2, labels=lab2,
         deleted=dele2, upper_ids=_t(uid_np, dev), global_ids=gid2,
         entry=tuple(st.entry for st, _, _ in states),
         max_level=tuple(st.max_level for st, _, _ in states),
-        num_nodes=tuple(int(x) for x in need), vec_scales=out_scales,
+        num_nodes=tuple(int(need[si]) for si in loc), vec_scales=out_scales,
         rerank_rows=new_rerank, rerank_sqn=new_rsqn,
     )
 
 
 def delete_sharded(index: ShardedIndex, labels: np.ndarray) -> ShardedIndex:
     """Tombstone every row of the given labels across all shards (delete.c
-    semantics; a duplicated label tombstones each of its rows).
+    semantics; a duplicated label tombstones each of its rows). Each rank
+    tombstones its own shards' rows; no collective.
 
     Labels are resolved on the host by a sorted search per shard, O((cap +
     L) log cap) time and 8 bytes a row of label reads."""
@@ -1130,6 +1307,10 @@ def compact_sharded(
 
     ``params`` may re-parametrise the graph (dim and metric must match).
     ``kw`` goes to ``build_sharded_device``.
+
+    Over ranks, the live rows and labels are all-gathered over the data row
+    in global shard order (each rank then holds every live row on the
+    host: 512 MB at 1M f32 rows of 128), and each rank builds its shards.
     """
     p = index.params if params is None else params
     if index.params is not None:
@@ -1138,7 +1319,7 @@ def compact_sharded(
                 raise ValueError(f"compact_sharded cannot change {field}")
     quant_kind = _quant_kind(index)
     live_vecs, live_labels = [], []
-    for si in range(index.n_shards):
+    for si in range(index.n_local):
         view = _ShardView(index, si)
         n = view.n
         alive = ~view.deleted[:n]
@@ -1149,6 +1330,9 @@ def compact_sharded(
         live_labels.append(view.labels[:n][alive])
     vecs = np.concatenate(live_vecs)
     labels = np.concatenate(live_labels).astype(np.uint64)
+    if mesh.distributed:
+        vecs = _dist.all_gather_rows(vecs, mesh.row_group, mesh.device)
+        labels = _dist.all_gather_rows(labels, mesh.row_group, mesh.device)
     base_p = p
     if quant_kind == "pq":
         base_p = dataclasses.replace(p, pq=False)
@@ -1173,11 +1357,13 @@ class ShardedSearchStats:
 
     @classmethod
     def of(cls, index: ShardedIndex, q: int, k: int) -> "ShardedSearchStats":
-        s = index.global_ids.shape[0]
+        s = index.n_shards
         return cls(
             n_shards=s,
             shard_cap=index.global_ids.shape[1] - 1,
             # [S, Q, k] of f32 distance, i32 id and two u32 label words: the
-            # results the merge reads (one all-gather on the reference's mesh)
+            # results the merge reads (one all-gather on the reference's mesh;
+            # over ranks, the data rows' all-gathers together, which
+            # parallel._dist.merge_stats counts as received)
             collective_bytes_per_batch=s * q * k * 16,
         )

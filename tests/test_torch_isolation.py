@@ -1,8 +1,10 @@
 """The port stands alone: importing every lantern_tpu_torch module and
 chip_smoke pulls in neither jax, ml_dtypes nor lantern_tpu, and an entry
-point, a service or a sharded layout (``parallel.make_mesh``, which every
-``parallel`` entry point takes its device from) given no device on a
-machine without CUDA raises instead of running on the CPU."""
+point, a service, a sharded layout (``parallel.make_mesh``, which every
+``parallel`` entry point takes its device from) or a rank joining a
+process group (``parallel.init_multihost``) given no device on a machine
+without CUDA raises instead of running on the CPU; named the CPU, a
+one-rank gloo group lays its shards out."""
 
 import pathlib
 import subprocess
@@ -23,7 +25,7 @@ PROBE = textwrap.dedent("""
                  if m.split(".")[0] in ("jax", "jaxlib", "lantern_tpu", "flax",
                                         "ml_dtypes"))
     assert not bad, bad
-    assert len(mods) >= 49, mods
+    assert len(mods) >= 50, mods
     assert {"lantern_tpu_torch.ops.hamming",
             "lantern_tpu_torch.quant.scalar",
             "lantern_tpu_torch.graph.build_device",
@@ -47,6 +49,7 @@ PROBE = textwrap.dedent("""
             "lantern_tpu_torch.cli",
             "lantern_tpu_torch.parallel",
             "lantern_tpu_torch.parallel.sharded",
+            "lantern_tpu_torch.parallel._dist",
             "lantern_tpu_torch.models",
             "lantern_tpu_torch.text",
             "lantern_tpu_torch.text.bloom",
@@ -64,9 +67,11 @@ PROBE = textwrap.dedent("""
             raise AssertionError("Index without a device ran on the CPU")
         from lantern_tpu_torch.service.http_api import HttpApi
         from lantern_tpu_torch.service.index_server import IndexServer
-        from lantern_tpu_torch.parallel import make_mesh
+        from lantern_tpu_torch.parallel import init_multihost, make_mesh
         for make in (lambda: IndexServer(port=0, status_port=None),
-                     lambda: HttpApi(port=0), make_mesh):
+                     lambda: HttpApi(port=0), make_mesh,
+                     lambda: init_multihost("127.0.0.1:29500", 1, 0,
+                                            backend="gloo")):
             try:
                 make()
             except RuntimeError as e:
@@ -74,6 +79,15 @@ PROBE = textwrap.dedent("""
             else:
                 raise AssertionError("a service or a mesh without a "
                                      "device ran on the CPU")
+    import os, tempfile
+    from lantern_tpu_torch.parallel import init_multihost, make_mesh
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    init_multihost(num_processes=1, process_id=0, device="cpu",
+                   init_method="file://" + store)
+    mesh = make_mesh(2)
+    assert mesh.distributed and mesh.local_shards == (0, 1), mesh
+    assert str(mesh.device) == "cpu" and mesh.shape == {"data": 1, "shard": 2}
+    torch.distributed.destroy_process_group()
     print("isolated", len(mods))
 """)
 
