@@ -17,10 +17,14 @@ Phases, each of which exits non-zero on failure:
    torch.profiler, call time from CUDA events) beside its bound, its plain
    version and a library yardstick;
 4. the PQ decode kernel against its plain version at the PQ shapes (1M rows
-   at S=32/K=256/dsub=4, the 960-d S=240 codebook beyond shared memory, the
-   grouped S=24/K=16/dsub=40, the S=24/K=64 OPQ shape, and a prime row
-   count): decoded rows bit-equal, |x|^2 within 1e-5 relative, then timed
-   the same way;
+   at S=32/K=256/dsub=4, the 960-d S=240 codebook in shared-memory slices,
+   the grouped S=24/K=16/dsub=40, the S=24/K=64 OPQ shape, a prime row
+   count, and the OPQ shape's codes as a view one row into a larger
+   table): decoded rows bit-equal, |x|^2 within 1e-5 relative and
+   bit-equal on a repeat call, the kernel's plan logged, then timed the same
+   way with its share of the bound; then one ``flat_search_pq`` batch of
+   1024 queries over the 960-d codes, timed, with the decode's share of its
+   device time;
 5. the f32 main path: ``Index(HnswParams(dim=128)).add`` of n clustered rows
    (SIFT1M's shape, 4096 centres, jitter 0.35, from the seed) built on all
    host cores, then ``Index.search`` in flat and graph mode (k=10, ef=64,
@@ -200,6 +204,7 @@ from torch.autograd import DeviceType
 from lantern_tpu_torch import HnswParams, Index
 from lantern_tpu_torch.config import Metric, QuantKind
 from lantern_tpu_torch.csrc.build import library_path
+from lantern_tpu_torch.flat import flat_search_pq
 from lantern_tpu_torch.native import get_lib
 from lantern_tpu_torch.ops.distance import exact_search, unpack_bits
 from lantern_tpu_torch.ops.gather_dists import gather_dists, gather_dists_ref
@@ -210,7 +215,12 @@ from lantern_tpu_torch.ops.hamming import (
     hamming_scores,
     hamming_scores_ref,
 )
-from lantern_tpu_torch.ops.pq_decode import codebook_bf16, pq_decode, pq_decode_ref
+from lantern_tpu_torch.ops.pq_decode import (
+    codebook_bf16,
+    decode_plan,
+    pq_decode,
+    pq_decode_ref,
+)
 from lantern_tpu_torch.graph import build_device
 from lantern_tpu_torch import cli
 from lantern_tpu_torch.autotune import AutotuneResult, autotune, save_results
@@ -252,9 +262,14 @@ PEAK_BYTES_PER_S, PEAK_F32_FLOPS, PEAK_INT8_OPS = 3.35e12, 67e12, 1979e12
 # below the bound)
 BOUND_SHARE_MIN = 0.95
 FLAT_RECALL_MIN, GRAPH_RECALL_MIN = 0.999, 0.90
-# PQ decode cases (rows, S, K, dsub); the first is the main path's block shape
-PQ_CASES = [(1_000_000, 32, 256, 4), (200_000, 240, 256, 4),
-            (200_000, 24, 16, 40), (100_000, 24, 64, 4), (99_991, 32, 256, 4)]
+# PQ decode cases (rows, S, K, dsub, row offset of the codes' view); the
+# first is the main path's block shape, the last the OPQ shape's codes as a
+# view one row into a larger table (its pointer 8 bytes off 16)
+PQ_CASES = [(1_000_000, 32, 256, 4, 0), (200_000, 240, 256, 4, 0),
+            (200_000, 24, 16, 40, 0), (100_000, 24, 64, 4, 0),
+            (99_991, 32, 256, 4, 0), (100_000, 24, 64, 4, 1)]
+# the flat ADC scan timed over the 960-d case's codes: one batch of queries
+PQ_SCAN_CASE = (200_000, 240, 256, 4, 0)
 PQ_XSQ_RTOL = 1e-5
 PQ_AUTO_RECALL_MIN = 0.90  # rerank="auto" recall@10 floor on the PQ path
 OPQ_N, OPQ_DIM = 100_000, 96
@@ -529,24 +544,31 @@ def phase_pq_kernel(seed):
     timings. Returns (the main case's row, max abs error over all cases)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     rows, max_abs = [], 0.0
-    for n, s, kc, dsub in PQ_CASES:
+    for case in PQ_CASES:
+        n, s, kc, dsub, offset = case
         dim = s * dsub
-        cb = codebook_bf16(torch.randn((s, kc, dsub), generator=gen,
-                                       device="cuda"))
-        # two code sets: the decoded output alone (>= 190 MB) exceeds L2
-        code_sets = [torch.randint(0, kc, (n, s), generator=gen, device="cuda",
-                                   dtype=torch.uint8) for _ in range(2)]
+        cent = torch.randn((s, kc, dsub), generator=gen, device="cuda")
+        cb = codebook_bf16(cent)
+        # two code sets: the decoded output alone (>= 190 MB) exceeds L2;
+        # each a view `offset` rows into its table
+        code_sets = [torch.randint(0, kc, (n + offset, s), generator=gen,
+                                   device="cuda", dtype=torch.uint8)[offset:]
+                     for _ in range(2)]
+        plan = decode_plan(n, s, kc, dsub, want_xsq=True)
         dec, xsq = pq_decode(code_sets[0], cb, want_xsq=True)
+        _, xsq_again = pq_decode(code_sets[0], cb, want_xsq=True)
         want, want_xsq = pq_decode_ref(code_sets[0], cb, want_xsq=True)
         torch.cuda.synchronize()
         bit_equal = bool(torch.equal(dec.view(torch.int16), want.view(torch.int16)))
+        xsq_repeat_equal = bool(torch.equal(xsq.view(torch.int32),
+                                            xsq_again.view(torch.int32)))
         xsq_err = (xsq - want_xsq).abs()
         xsq_rel = float((xsq_err / want_xsq.abs().clamp(min=1e-30)).max())
         abs_err = max(float((dec.float() - want.float()).abs().max()),
                       float(xsq_err.max()))
         max_abs = max(max_abs, abs_err)
-        ok = bit_equal and xsq_rel <= PQ_XSQ_RTOL
-        del dec, xsq, want, want_xsq
+        ok = bit_equal and xsq_repeat_equal and xsq_rel <= PQ_XSQ_RTOL
+        del dec, xsq, xsq_again, want, want_xsq
         table = cb.reshape(s * kc, dsub)
         offs = torch.arange(s, device="cuda") * kc
         # library yardstick: one embedding lookup of codes + s*K into the
@@ -569,15 +591,64 @@ def phase_pq_kernel(seed):
         # each input read once, each output written once: codes, the bf16
         # codebook, the decoded rows and |x|^2; no arithmetic to speak of
         nbytes = n * s + s * kc * dsub * 2 + n * dim * 2 + n * 4
-        row = dict(n=n, s=s, k=kc, dsub=dsub, ok=ok, bit_equal=bit_equal,
-                   max_abs_err=abs_err, xsq_max_rel_err=xsq_rel, **times,
-                   bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
-                   bytes=nbytes)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        row = dict(n=n, s=s, k=kc, dsub=dsub, row_offset=offset,
+                   codes_misalign=code_sets[0].data_ptr() % 16, plan=plan,
+                   ok=ok, bit_equal=bit_equal,
+                   xsq_repeat_equal=xsq_repeat_equal, max_abs_err=abs_err,
+                   xsq_max_rel_err=xsq_rel, **times, bound_ms=bound_ms,
+                   bound_by="bytes", bytes=nbytes,
+                   share_of_bound=bound_ms / times["ms"])
         rows.append(row)
         log("pq_decode " + json.dumps(row))
         if not ok:
             fail(f"pq_decode disagrees with its plain version: {row}")
+        if case == PQ_SCAN_CASE:
+            pq_scan(code_sets[0], cent, row["ms"], gen)
+        del code_sets
     return rows[0], max_abs
+
+
+def pq_scan(codes, cent, decode_ms, gen):
+    """One ``flat_search_pq`` batch of BATCH queries over these codes: its
+    ms (CUDA events) and device time by kernel (torch.profiler), and the
+    decode kernel's share of that device time."""
+    s, kc, dsub = cent.shape
+    queries = torch.randn((BATCH, s * dsub), generator=gen, device="cuda")
+    launches = pq_decode.launches
+
+    def scan(q):
+        return flat_search_pq(codes, cent, q, k=K)
+
+    # one search must decode the codes in one launch (one block of rows)
+    scan(queries)
+    torch.cuda.synchronize()
+    per_batch = pq_decode.launches - launches
+    ms = cuda_ms(scan, [queries], warm=1, reps=5)
+
+    def decoded(ev):  # a record that lost the decode kernel is taken again
+        return any("pq_decode_kernel" in e.key and e.self_device_time_total > 0
+                   for e in ev)
+
+    ev = [e for e in profiled(lambda: scan(queries), decoded)
+          if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    dec_ms = sum(e.self_device_time_total for e in ev
+                 if "pq_decode_kernel" in e.key) / 1e3
+    if not ev:
+        log("pq_scan: torch.profiler lost the decode kernel in every try; "
+            "no device split")
+    log("pq_scan " + json.dumps({
+        "n": codes.shape[0], "s": s, "k": kc, "dsub": dsub,
+        "queries": BATCH, "ms": ms, "device_busy_ms": busy_ms or None,
+        "decode_device_ms": dec_ms or None, "decode_kernel_ms": decode_ms,
+        "decode_share_of_device": dec_ms / busy_ms if busy_ms else None,
+        "pq_decode_launches_per_batch": per_batch,
+        "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]],
+    }))
+    if per_batch != 1:
+        fail(f"pq_scan: {per_batch} decode launches a batch, not 1")
 
 
 def recall(found, truth):

@@ -58,6 +58,36 @@ def _kernel():
     return fn
 
 
+_PLAN_KEYS = ("vec", "epv", "slices", "slice_subs", "lanes", "tile_rows",
+              "stages", "threads", "blocks", "smem", "tiles", "cluster")
+
+
+def decode_plan(n: int, s: int, k: int, dsub: int, want_xsq: bool = True):
+    """The launch the kernel makes for these shapes on the current CUDA
+    device, as a dict: bytes a lane stores at once (``vec``) and entries in
+    one store (``epv``), codebook ``slices`` and subspaces a slice, lanes a
+    row, rows a tile, ring stages, threads and blocks, dynamic shared memory
+    bytes, tiles, and whether the blocks of a tile form a cluster."""
+    fn = _plan_fn()
+    plan = (ctypes.c_int64 * len(_PLAN_KEYS))()
+    rc = fn(n, s, k, dsub, int(want_xsq), plan)
+    if rc != 0:
+        raise RuntimeError(f"pq_decode has no plan for n={n} S={s} K={k} "
+                           f"dsub={dsub}: CUDA error {rc}")
+    return dict(zip(_PLAN_KEYS, plan))
+
+
+@functools.cache
+def _plan_fn():
+    from lantern_tpu_torch.csrc.build import cuda_library
+
+    fn = cuda_library("pq_decode").ldb_pq_decode_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int64] + [ctypes.c_int] * 4
+                  + [ctypes.POINTER(ctypes.c_int64)])
+    return fn
+
+
 def pq_decode(codes: torch.Tensor, centroids_bf16: torch.Tensor,
               want_xsq: bool = False):
     """Decode PQ codes -> (decoded [N, S*dsub] bf16, |x|^2 [N] f32 or None).

@@ -176,3 +176,107 @@ def test_kernel_rejects_mixed_devices_on_card(cuda):
     with pytest.raises(ValueError, match="centroids are on"):
         pq_decode(torch.from_numpy(codes).to(cuda),
                   codebook_bf16(torch.from_numpy(cents)))
+
+
+def _card_inputs(cuda, shape, n, offset=0, seed=5):
+    """codes as rows [offset, offset + n) of a larger table (a view whose
+    pointer is aligned only to offset * S bytes), codes >= K included."""
+    codes, cents = _inputs(shape, n=n + offset, seed=seed, code_max=256)
+    c = torch.from_numpy(codes).to(cuda)[offset:]
+    assert c.is_contiguous() and c.shape == (n, shape[0])
+    return c, codebook_bf16(torch.from_numpy(cents).to(cuda))
+
+
+def _check_on_card(c, cb):
+    before = pq_decode.launches
+    dec, xsq = pq_decode(c, cb, want_xsq=True)
+    torch.cuda.synchronize()
+    assert pq_decode.launches == before + 1
+    want, want_xsq = pq_decode_ref(c, cb, want_xsq=True)
+    assert torch.equal(dec.view(torch.int16), want.view(torch.int16))
+    torch.testing.assert_close(xsq, want_xsq, rtol=1e-5, atol=0)
+    return dec, xsq
+
+
+# (S, K, dsub, rows): the phase-4 shapes and S = 10, each with rows enough
+# that every block of the persistent grid refills its ring of code tiles
+VIEW_CASES = [(10, 256, 4, 1_000_003), (24, 64, 4, 300_001),
+              (24, 16, 40, 100_003), (32, 256, 4, 300_001),
+              (240, 256, 4, 200_003)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", VIEW_CASES,
+                         ids=[f"{s}x{k}x{d}-{n}" for s, k, d, n in VIEW_CASES])
+def test_kernel_reads_code_views_on_card(cuda, case, offset):
+    s, k, dsub, n = case
+    _check_on_card(*_card_inputs(cuda, (s, k, dsub), n, offset))
+
+
+EDGE_SHAPES = [(32, 256, 4), (240, 256, 4), (24, 16, 40), (10, 64, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES,
+                         ids=[f"{s}x{k}x{d}" for s, k, d in EDGE_SHAPES])
+def test_kernel_rows_at_tile_edges_on_card(cuda, shape):
+    """Row counts T-1, T, T+1 and 2T+1 of the smallest tile (few rows) and
+    of the largest (many rows), each with a code view at row offset 1."""
+    from lantern_tpu_torch.ops.pq_decode import decode_plan
+
+    small = decode_plan(1, *shape)["tile_rows"]
+    big = decode_plan(10**9, *shape)["tile_rows"]  # the largest tile
+    counts = [small - 1, small, small + 1, 2 * small + 1,
+              2000 * big - 1, 2000 * big, 2000 * big + 1]
+    for n in counts:
+        want_tile = small if n <= 2 * small + 1 else big
+        assert decode_plan(n, *shape)["tile_rows"] == want_tile, n
+        _check_on_card(*_card_inputs(cuda, shape, n, offset=1))
+
+
+@pytest.mark.cuda
+def test_kernel_codebook_beyond_960d_on_card(cuda):
+    """S=384, K=256, dsub=4: a 768 KiB codebook, in four slices or more
+    (each at most a block's 227 KiB of shared memory)."""
+    from lantern_tpu_torch.ops.pq_decode import decode_plan
+
+    plan = decode_plan(50_001, 384, 256, 4)
+    assert plan["slices"] >= 4 and plan["cluster"] == 1
+    for offset in (0, 1):
+        _check_on_card(*_card_inputs(cuda, (384, 256, 4), 50_001, offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VIEW_CASES + [(384, 256, 4, 50_001)],
+                         ids=[f"{s}x{k}x{d}" for s, k, d, _ in VIEW_CASES]
+                         + ["384x256x4"])
+def test_kernel_xsq_same_on_every_call_on_card(cuda, case):
+    s, k, dsub, n = case
+    c, cb = _card_inputs(cuda, (s, k, dsub), n, offset=1)
+    dec, xsq = _check_on_card(c, cb)
+    dec2, xsq2 = pq_decode(c, cb, want_xsq=True)
+    assert torch.equal(xsq2.view(torch.int32), xsq.view(torch.int32))
+    assert torch.equal(dec2.view(torch.int16), dec.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_kernel_plan_holds_the_codebook_in_shared_memory_on_card(cuda):
+    """Every phase-4 shape keeps its codebook in shared memory: one slice at
+    the main shape, slices of the 960-d codebook in one cluster with
+    |x|^2, 16-byte stores at dsub = 4 and 40."""
+    from lantern_tpu_torch.ops.pq_decode import decode_plan
+
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    for s, k, dsub, n in [(32, 256, 4, 1_000_000), (240, 256, 4, 200_000),
+                          (24, 16, 40, 200_000), (24, 64, 4, 100_000)]:
+        for want_xsq in (True, False):
+            plan = decode_plan(n, s, k, dsub, want_xsq)
+            assert plan["slices"] * plan["slice_subs"] >= s
+            assert plan["slice_subs"] * k * dsub * 2 <= plan["smem"] <= optin
+            assert plan["vec"] == 16
+            assert plan["cluster"] == int(want_xsq and plan["slices"] > 1)
+            assert plan["blocks"] % plan["slices"] == 0
+            assert plan["tile_rows"] % (plan["threads"] // plan["lanes"]) == 0
+    assert decode_plan(1_000_000, 32, 256, 4)["slices"] == 1
+    assert decode_plan(200_000, 240, 256, 4)["slices"] > 1

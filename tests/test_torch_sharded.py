@@ -650,3 +650,27 @@ def test_sharded_search_on_card_matches_cpu(cuda):
     (cb, cf), (pb, pf) = out[str(cuda)], out[CPU]
     assert_results_match(cb, pb, rtol=1e-4)
     assert_results_match(cf, pf, rtol=1e-4)
+
+
+def test_port_reaches_sharded_golden():
+    """G1: the port's ``build_sharded`` (8 shards, native per-shard build,
+    ``nthreads=1``, F1) and ``search_sharded`` at ef=64 on the pinned 10k x
+    128 fixture reach the reference's ``sharded`` golden recall@10 (0.984,
+    tol 0.01; tests/test_recall_golden.py:132-140)."""
+    import pathlib
+
+    from lantern_tpu_torch.io import parse_fvecs
+
+    fixtures = pathlib.Path(__file__).parent / "fixtures"
+    base = parse_fvecs(str(fixtures / "golden_base.fvecs.gz"))
+    queries = parse_fvecs(str(fixtures / "golden_query.fvecs.gz"))
+    assert base.shape == (10000, 128) and queries.shape == (100, 128)
+    b_sq = np.einsum("nd,nd->n", base, base)
+    gt = np.argsort(b_sq[None, :] - 2.0 * (queries @ base.T), axis=1,
+                    kind="stable")[:, :10]
+    ix = build_sharded(base, HnswParams(dim=128, m=16, ef_construction=64),
+                       make_mesh(8, device=CPU), seed=0, nthreads=1)
+    _, gids, _ = search_sharded(ix, torch.from_numpy(queries), k=10, ef=64)
+    hits = sum(len(set(f[f >= 0].tolist()) & set(t.tolist()))
+               for f, t in zip(gids.numpy(), gt))
+    assert hits / gt.size >= 0.984 - 0.01
