@@ -166,11 +166,25 @@ Phases, each of which exits non-zero on failure:
    data=RANKS_DATA x 2 shard ranks, loading (b)'s save: beam and flat
    results equal to (b)'s; seconds and ms a batch of each beside phase
    14's, and the merge's bytes and ms a batch;
-16. one JSON line of kernel numbers (K1's and K4's ``build_launches`` from
+16. the examples (``lantern_tpu_torch/examples/``): quickstart, pq_rerank,
+   filters_and_maintenance and sharded_mesh, and sharded_mesh over
+   EXAMPLE_RANKS gloo ranks sharing the card, each started as a user
+   starts it (``python3 -m lantern_tpu_torch.examples.<name>``, no
+   ``--device``, so on the default cuda, at the reference's N), all at
+   once under one wall limit; each one's last JSON line, seconds and
+   kernel launches logged; any non-zero exit fails the run, and so do no
+   decode launch in pq_rerank, no K1 launch in sharded_mesh and ranks
+   whose ids differ from one process's; then a tiny ``torch.nn.Module``
+   embedder injected into ``LocalTransformerRuntime`` with no device (on
+   the card, every pooling within EMBED_ATOL of a CPU copy's run, dynamic
+   batch sizing from the card's free memory) and run by a daemon
+   ``local`` embedding job with the daemon on the card;
+17. one JSON line of kernel numbers (K1's and K4's ``build_launches`` from
    (b) and (c), every kernel's ``persist_launches`` from 12,
-   ``service_launches`` from 13, ``shard_launches`` from 14 and
-   ``rank_launches`` from 15), the ``nvidia-smi`` line, and last the
-   result line ``{"ok": true, "device": {...}}``.
+   ``service_launches`` from 13, ``shard_launches`` from 14,
+   ``rank_launches`` from 15 and ``example_launches`` from 16), the
+   ``nvidia-smi`` line, and last the result line ``{"ok": true, "device":
+   {...}}``.
 
 Needs the ``lantern_tpu_torch`` package beside it and a CUDA device; never
 imports jax or lantern_tpu.
@@ -182,6 +196,7 @@ import argparse
 import asyncio
 import concurrent.futures
 import contextlib
+import copy
 import hashlib
 import io
 import itertools
@@ -194,8 +209,10 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
+import zlib
 
 import numpy as np
 import torch
@@ -222,7 +239,7 @@ from lantern_tpu_torch.ops.pq_decode import (
     pq_decode_ref,
 )
 from lantern_tpu_torch.graph import build_device
-from lantern_tpu_torch import cli
+from lantern_tpu_torch import cli, embeddings
 from lantern_tpu_torch.autotune import AutotuneResult, autotune, save_results
 from lantern_tpu_torch.quant.pq import (
     PQCodebook,
@@ -295,7 +312,7 @@ BUILD_SPANS = ("build.candidates", "build.pair_dists", "build.select",
 # half of them deleted), the search thread's pause between batches (it
 # shares the interpreter with the rebuild's Python loops), the streaming
 # scan's queries and rows, the share of the OPQ index compacted away
-WAL_N, WAL_DELETES = 8_192, 10_000
+WAL_N, WAL_DELETES = 4_096, 5_000
 RC_PAIRS, RC_PAIR_ROWS, RC_SEARCH_PAUSE_S = 4, 256, 0.5
 STREAM_QUERIES, STREAM_ROWS = 4, 1000
 # the i8 path's default rows. Cuts that keep the whole run under 1200 s
@@ -317,11 +334,17 @@ I8_N = 100_000
 # the index, as before) and STREAM_QUERIES from 8; the autotune job's
 # variants (the six took 74.2 s, ~10 s each but 20 s for m=48); HTTP_N
 # from 100,000 (24.4 s of JSON rows); SHARD_COMPACT_N and SHARD_HAM_N from
-# 100,000. With them the run took 675.8 s.
+# 100,000. With them the run took 675.8 s. Cuts that make room for the
+# examples phase (27.7 s on an H100 80GB HBM3 at 700 W, where the run took
+# 888.2 s with it, against 777.3-842.0 s before it): PERSIST_N from
+# 200,000 (a host build and a concurrent device rebuild of the index),
+# WAL_N from 8,192 and WAL_DELETES from 10,000 (a twentieth of the index,
+# as before), the autotune job's third variant (16, 60, 76), and HTTP_N
+# from 50,000.
 PQ_PATH_N = 250_000
 HAM_PATH_N = 500_000
-PERSIST_N = 200_000
-AUTOTUNE_JOB_VARIANTS = ((8, 40, 64), (12, 48, 64), (16, 60, 76))
+PERSIST_N = 100_000
+AUTOTUNE_JOB_VARIANTS = ((8, 40, 64), (12, 48, 64))
 OPQ_DELETE_EVERY = 10
 # the service phase: the collection the HTTP API serves from the indexing
 # server's snapshot, its single-vector requests and client threads; the
@@ -333,7 +356,7 @@ OPQ_DELETE_EVERY = 10
 HTTP_COLLECTION = "smoke"
 HTTP_REQUESTS, HTTP_THREADS = 1024, 4
 HTTP_RECALL_MIN = 0.999
-HTTP_N, HTTP_BATCH, HTTP_QUERIES, HTTP_DELETE_SHARE = 50_000, 1000, 64, 0.1
+HTTP_N, HTTP_BATCH, HTTP_QUERIES, HTTP_DELETE_SHARE = 25_000, 1000, 64, 0.1
 HTTP_HAM_N, HTTP_HAM_QUERIES = 10_000, 32
 WEIGHTED_QUERIES, WEIGHTS = 64, (0.7, 0.3)
 PQ_CHUNK_ROWS, PQ_STOP_PASSES, PQ_TABLE_ITERS, PQ_MSE_RATIO = 65536, 3, 8, 1.15
@@ -354,6 +377,16 @@ SHARD_HAM_N = 50_000
 RANKS_DATA = 2
 RANK_TIMEOUT_S = 120
 RANKS_A_TIMEOUT_S, RANKS_B_TIMEOUT_S, RANKS_C_TIMEOUT_S = 240, 360, 180
+# the examples phase: each example of lantern_tpu_torch/examples started as
+# a user starts it (no --device, the reference's N), all at once, under one
+# wall limit; sharded_mesh also over EXAMPLE_RANKS gloo ranks; the injected
+# embedder's texts and the tolerance of its card run against its CPU run
+EXAMPLES = ("quickstart", "pq_rerank", "filters_and_maintenance",
+            "sharded_mesh")
+EXAMPLE_RANKS = 2
+EXAMPLES_TIMEOUT_S = 240
+EMBED_TEXTS = 40
+EMBED_ATOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -2849,6 +2882,191 @@ def profile_search(ix, batch, label, wall_ms, **search_kw):
     return ev
 
 
+def run_examples(work: str) -> dict:
+    """Start every example, and sharded_mesh over EXAMPLE_RANKS ranks, as a
+    user does (``python3 -m lantern_tpu_torch.examples.<name>``, no
+    ``--device``, no ``--n``), all at once; any non-zero exit or the wall
+    limit kills the rest and fails the run. Returns each run's last line
+    and wall seconds by run name."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "EXAMPLE_N"}
+    env["PYTHONPATH"] = root
+    runs = {name: [name] for name in EXAMPLES}
+    runs[f"sharded_mesh --ranks {EXAMPLE_RANKS}"] = [
+        "sharded_mesh", "--ranks", str(EXAMPLE_RANKS)]
+    procs, logs, t0 = {}, {}, time.perf_counter()
+    try:
+        for run, (name, *args) in runs.items():
+            logs[run] = open(os.path.join(work, f"{len(logs)}.log"), "w+")
+            procs[run] = subprocess.Popen(
+                [sys.executable, "-m", f"lantern_tpu_torch.examples.{name}",
+                 *args], cwd=root, env=env, stdout=logs[run],
+                stderr=subprocess.STDOUT)
+        wall = {}
+        while len(wall) < len(procs):
+            for run, p in procs.items():
+                if run not in wall and p.poll() is not None:
+                    wall[run] = time.perf_counter() - t0
+            if any(p.returncode not in (None, 0) for p in procs.values()):
+                break
+            if time.perf_counter() - t0 > EXAMPLES_TIMEOUT_S:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    out = {}
+    for run, p in procs.items():
+        logs[run].seek(0)
+        lines = logs[run].read().splitlines()
+        logs[run].close()
+        if p.returncode != 0:
+            for line in lines[-40:]:
+                log(f"  [{run}] {line}")
+            fail(f"examples: {run} exited {p.returncode} after "
+                 f"{time.perf_counter() - t0:.1f} s")
+        out[run] = json.loads(lines[-1])
+        out[run]["wall_s"] = wall[run]
+    return out
+
+
+class SmokeTokenizer:
+    """Words hashed into VOCAB ids, padded to the batch's longest."""
+
+    VOCAB = 512
+
+    def __call__(self, batch, padding, truncation, max_length,
+                 return_tensors):
+        ids = [[zlib.crc32(w.encode()) % self.VOCAB for w in t.split()]
+               [:max_length] or [0] for t in batch]
+        width = max(len(r) for r in ids)
+        return {"input_ids": torch.tensor([r + [0] * (width - len(r))
+                                           for r in ids]),
+                "attention_mask": torch.tensor([[1] * len(r)
+                                                + [0] * (width - len(r))
+                                                for r in ids])}
+
+
+class SmokeEmbedder(torch.nn.Module):
+    """A tiny text encoder from a seed: token embeddings and one tanh
+    layer; records the device of each output it returns."""
+
+    def __init__(self, dim: int = 64):
+        super().__init__()
+        gen = torch.Generator().manual_seed(0)
+        self.emb = torch.nn.Embedding(SmokeTokenizer.VOCAB, dim)
+        self.proj = torch.nn.Linear(dim, dim)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+        self.seen = []
+
+    def forward(self, input_ids, attention_mask):
+        hidden = torch.tanh(self.proj(self.emb(input_ids)))
+        self.seen.append(hidden.device.type)
+        return types.SimpleNamespace(last_hidden_state=hidden)
+
+
+def check_embedder() -> dict:
+    """The injected embedder through ``LocalTransformerRuntime`` with no
+    device (on the card) and a daemon ``local`` job (the daemon on the
+    card), each pooling against a CPU copy's run. Returns the max abs
+    differences."""
+    texts = [" ".join(f"word{(i * 7 + j) % 97}" for j in range(3 + i % 9))
+             for i in range(EMBED_TEXTS)]
+    model, tok = SmokeEmbedder(), SmokeTokenizer()
+    cpu_model = copy.deepcopy(model)
+    err = {}
+    for pooling in embeddings.LocalTransformerRuntime.POOLINGS:
+        rt = embeddings.LocalTransformerRuntime(model=model, tokenizer=tok,
+                                                pooling=pooling, batch_size=0)
+        model.seen.clear()
+        got = rt.process(texts)
+        if rt.device.type != "cuda" or set(model.seen) != {"cuda"} or any(
+                not p.is_cuda for p in model.parameters()):
+            fail(f"embedder ({pooling}): ran on {rt.device} / {model.seen}")
+        want = embeddings.LocalTransformerRuntime(
+            model=cpu_model, tokenizer=tok, pooling=pooling, device="cpu",
+            batch_size=16).process(texts)
+        err[pooling] = float(np.abs(got - want).max())
+        if not err[pooling] <= EMBED_ATOL or got.shape != want.shape:
+            fail(f"embedder ({pooling}): {got.shape} against {want.shape}, "
+                 f"max abs err {err[pooling]} > {EMBED_ATOL}")
+        log(f"embedder {pooling}: {got.shape} on {rt.device}, dynamic batch "
+            f"{rt.batch_size}, max abs err against the CPU {err[pooling]:.3g}")
+    with tempfile.TemporaryDirectory() as work:
+        inp = os.path.join(work, "texts.txt")
+        with open(inp, "w") as f:
+            f.write("\n".join(texts) + "\n")
+        q = JobQueue(os.path.join(work, "jobs"))
+        jid = q.submit("embedding", {
+            "input": inp, "output": os.path.join(work, "e.npy"),
+            "runtime": "local", "runtime_args": {"model_path": "smoke",
+                                                 "pooling": "mean"}})
+        loader = embeddings._load_pretrained
+        embeddings._load_pretrained = lambda path: (model, tok)
+        try:
+            daemon = Daemon(q, backoff_base_s=0.01)
+            model.seen.clear()
+            daemon.run_pending()
+        finally:
+            embeddings._load_pretrained = loader
+        job = q.get(jid)
+        if daemon.device.type != "cuda" or job["status"] != "completed":
+            fail(f"embedder daemon job on {daemon.device}: {job}")
+        got = np.load(os.path.join(work, "e.npy"))
+    want = embeddings.LocalTransformerRuntime(
+        model=cpu_model, tokenizer=tok, pooling="mean",
+        device="cpu").process(texts)
+    err["daemon_mean"] = float(np.abs(got - want).max())
+    if set(model.seen) != {"cuda"} or not err["daemon_mean"] <= EMBED_ATOL:
+        fail(f"embedder daemon job: ran on {model.seen}, max abs err "
+             f"{err['daemon_mean']}")
+    log(f"embedder daemon job: {job['usage']} on {daemon.device}, max abs "
+        f"err against the CPU {err['daemon_mean']:.3g}")
+    return err
+
+
+def phase_examples() -> dict:
+    """Phase 16: the four examples and sharded_mesh over ranks as
+    subprocesses on the default device, then the injected embedder.
+    Returns each kernel's launches summed over the example runs."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        runs = run_examples(work)
+    total = dict.fromkeys(kernel_launches(), 0)
+    for run, res in runs.items():
+        launched = dict(res["launches"])
+        for k, v in res.get("ranks", {}).get("launches", {}).items():
+            launched[k] += v
+        for k, v in launched.items():
+            total[k] += v
+        brief = {k: res[k] for k in ("recall", "adc_recall", "rerank_recall",
+                                     "top1", "mode", "hybrid_labels",
+                                     "after_compact", "after_reindex", "size")
+                 if k in res}
+        log(f"example {run}: device {res['device']}, n {res['n']}, "
+            f"{res['seconds']:.2f} s in main, {res['wall_s']:.1f} s wall, "
+            f"launches {launched}, {json.dumps(brief)}")
+        if res["device"] != "cuda":
+            fail(f"example {run} ran on {res['device']}, not the default cuda")
+    ranks = runs[f"sharded_mesh --ranks {EXAMPLE_RANKS}"]["ranks"]
+    log(f"example sharded_mesh over {ranks['world']} gloo ranks: ids equal "
+        f"to one process {ranks['ids_equal']}, {ranks['seconds']:.1f} s")
+    if runs["pq_rerank"]["launches"]["pq_decode"] <= 0:
+        fail("example pq_rerank: no PQ decode launch")
+    for run in ("sharded_mesh", f"sharded_mesh --ranks {EXAMPLE_RANKS}"):
+        if runs[run]["launches"]["gather_dists"] <= 0:
+            fail(f"example {run}: no K1 launch")
+    if ranks["ids_equal"] is not True or ranks["launches"]["gather_dists"] <= 0:
+        fail(f"example sharded_mesh over ranks: {ranks}")
+    check_embedder()
+    log(f"examples phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="base rows")
@@ -2964,6 +3182,8 @@ def main(argv=None):
                         args.seed)
     del shard_ref
     lap("ranks")
+    example_launches = phase_examples()
+    lap("examples")
     log("phase seconds " + json.dumps(phase_s))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
 
@@ -2978,6 +3198,7 @@ def main(argv=None):
         "service_launches": k1_service,
         "shard_launches": shard["gather_dists"],
         "rank_launches": ranks["gather_dists"],
+        "example_launches": example_launches["gather_dists"],
         "max_abs_err": max_abs,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -2997,6 +3218,7 @@ def main(argv=None):
         "service_launches": pq_service,
         "shard_launches": shard["pq_decode"],
         "rank_launches": ranks["pq_decode"],
+        "example_launches": example_launches["pq_decode"],
         "max_abs_err": pq_max_abs,
         "ms": pq["ms"],
         "plain_ms": pq["plain_ms"],
@@ -3015,6 +3237,7 @@ def main(argv=None):
         "service_launches": k4_service,
         "shard_launches": shard["hamming_block"],
         "rank_launches": ranks["hamming_block"],
+        "example_launches": example_launches["hamming_block"],
         "max_abs_err": k4_max_abs,
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],

@@ -13,6 +13,10 @@ Subcommands (reference in parentheses):
 
 Every subcommand that touches an index takes ``--device`` (default
 ``cuda``; ``--device cpu`` runs the plain PyTorch path on the host).
+``create-embeddings`` and ``measure-model-speed`` take no ``--device``: a
+``local`` runtime runs its model on ``cuda`` unless ``--runtime-params``
+names one (``'{"device": "cpu", ...}'``); the other runtimes do no device
+work.
 
 Run: python -m lantern_tpu_torch.cli <subcommand> --help
 """

@@ -10,9 +10,13 @@ Here the registry holds:
 - "hash":  deterministic feature-hashing embedder (always available, no
            weights needed — the test/default runtime in a zero-egress env)
 - "local": transformers-based runtime for any locally present HF model dir
-           (the Ort analog; torch-cpu backend)
+           (the Ort analog); ``LocalTransformerRuntime`` and
+           ``LocalVisionRuntime`` run their model on ``device`` (default
+           ``cuda``, through ``resolve_device``: they raise without a card
+           and run on the host only when ``device="cpu"`` is named)
 - "openai"/"cohere": REST runtimes (urllib; base_url overridable so tests
-           can point them at a mock server)
+           can point them at a mock server); they and "hash" do no device
+           work
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import re
 import urllib.request
 
 import numpy as np
+
+from lantern_tpu_torch import resolve_device
 
 _RUNTIMES = ("hash", "local", "onnx", "openai", "cohere")
 
@@ -125,10 +131,26 @@ class HashRuntime:
         return f"completion:{digest}"
 
 
+def _load_pretrained(model_path: str):
+    """(model, tokenizer) of a local HF model dir."""
+    from transformers import AutoModel, AutoTokenizer  # lazy import
+
+    return (AutoModel.from_pretrained(model_path),
+            AutoTokenizer.from_pretrained(model_path))
+
+
+def _on(enc, device):
+    """A tokenizer's or processor's tensors moved to ``device``."""
+    return {k: v.to(device) for k, v in enc.items()}
+
+
 class LocalTransformerRuntime:
     """Local HF-transformers embedding runtime (the reference's Ort analog).
 
-    Requires model weights present on disk (zero-egress environment).
+    Requires model weights present on disk (zero-egress environment), or a
+    ``model`` and ``tokenizer`` given. The model and every input run on
+    ``device`` (default ``cuda``; raises without a card; the CPU only when
+    named); results come back as host arrays.
     Pooling modes mirror ort_runtime.rs:31-134: "mean" (masked mean over the
     last hidden state), "cls" (first token), "relu_log_max" (SPLADE-style
     log(1+relu) max-pool). ``batch_size=0`` enables dynamic batch sizing
@@ -137,37 +159,37 @@ class LocalTransformerRuntime:
 
     POOLINGS = ("mean", "cls", "relu_log_max")
 
-    def __init__(self, model_path: str | None = None, device: str = "cpu",
+    def __init__(self, model_path: str | None = None, device=None,
                  batch_size: int = 32, pooling: str = "mean",
                  model=None, tokenizer=None, max_length: int = 512):
         if pooling not in self.POOLINGS:
             raise ValueError(f"pooling {pooling!r}; expected {self.POOLINGS}")
+        self.device = resolve_device(device)
         if model is not None and tokenizer is not None:
             self.model, self.tokenizer = model, tokenizer
         else:
-            from transformers import AutoModel, AutoTokenizer  # lazy import
-
-            self.tokenizer = AutoTokenizer.from_pretrained(model_path)
-            self.model = AutoModel.from_pretrained(model_path)
-        self.model.eval()
-        self.device = device
-        if device != "cpu":
-            self.model = self.model.to(device)
+            self.model, self.tokenizer = _load_pretrained(model_path)
+        self.model = self.model.eval().to(self.device)
         self.pooling = pooling
         self.max_length = max_length
         self.batch_size = batch_size or self._dynamic_batch_size()
 
     def _dynamic_batch_size(self) -> int:
-        """Size batches from available memory (the reference sizes by free
-        GPU/host memory at an 80% threshold, ort_runtime.rs:318)."""
-        try:
-            import os
+        """Size batches from the free memory of the device the model runs
+        on, the card's (``torch.cuda.mem_get_info``) or the host's, at the
+        reference's 80% threshold (ort_runtime.rs:318)."""
+        if self.device.type == "cuda":
+            import torch
 
-            avail = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-        except (ValueError, OSError, AttributeError):
-            return 32
-        hidden = getattr(self.model.config, "hidden_size", 768)
-        layers = getattr(self.model.config, "num_hidden_layers", 12) or 1
+            avail, _ = torch.cuda.mem_get_info(self.device)
+        else:
+            try:
+                avail = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+            except (ValueError, OSError, AttributeError):
+                return 32
+        cfg = getattr(self.model, "config", None)
+        hidden = getattr(cfg, "hidden_size", 768)
+        layers = getattr(cfg, "num_hidden_layers", 12) or 1
         # rough activation footprint per sequence (f32)
         per_seq = self.max_length * hidden * (layers + 2) * 4
         usable = int(avail * 0.8)
@@ -191,11 +213,9 @@ class LocalTransformerRuntime:
         outs = []
         for i in range(0, len(texts), self.batch_size):
             batch = texts[i : i + self.batch_size]
-            enc = self.tokenizer(batch, padding=True, truncation=True,
-                                 max_length=self.max_length,
-                                 return_tensors="pt")
-            if self.device != "cpu":
-                enc = {k: v.to(self.device) for k, v in enc.items()}
+            enc = _on(self.tokenizer(batch, padding=True, truncation=True,
+                                     max_length=self.max_length,
+                                     return_tensors="pt"), self.device)
             with torch.no_grad():
                 hidden = self.model(**enc).last_hidden_state
             pooled = self._pool(hidden, enc["attention_mask"].unsqueeze(-1))
@@ -208,12 +228,15 @@ class LocalVisionRuntime:
     (ort_runtime.rs:286,673 process_image_clip; input_image_size 224).
 
     Takes a CLIP-style vision model + processor (injectable for offline
-    tests; otherwise loaded from a local HF model dir). ``process`` accepts
-    PIL images, numpy HWC uint8 arrays, or raw bytes.
+    tests; otherwise loaded from a local HF model dir). The model and its
+    inputs run on ``device`` (default ``cuda``; raises without a card; the
+    CPU only when named). ``process`` accepts PIL images, numpy HWC uint8
+    arrays, or raw bytes.
     """
 
     def __init__(self, model_path: str | None = None, batch_size: int = 16,
-                 model=None, processor=None):
+                 model=None, processor=None, device=None):
+        self.device = resolve_device(device)
         if model is not None and processor is not None:
             self.model, self.processor = model, processor
         else:
@@ -221,7 +244,7 @@ class LocalVisionRuntime:
 
             self.processor = AutoImageProcessor.from_pretrained(model_path)
             self.model = AutoModel.from_pretrained(model_path)
-        self.model.eval()
+        self.model = self.model.eval().to(self.device)
         self.batch_size = batch_size
 
     @staticmethod
@@ -240,14 +263,15 @@ class LocalVisionRuntime:
         outs = []
         for i in range(0, len(images), self.batch_size):
             batch = [self._decode(im) for im in images[i : i + self.batch_size]]
-            enc = self.processor(images=batch, return_tensors="pt")
+            enc = _on(self.processor(images=batch, return_tensors="pt"),
+                      self.device)
             with torch.no_grad():
                 out = self.model(**enc)
             # CLIP vision models expose pooler_output; generic ViTs: CLS token
             pooled = getattr(out, "pooler_output", None)
             if pooled is None:
                 pooled = out.last_hidden_state[:, 0, :]
-            outs.append(pooled.numpy().astype(np.float32))
+            outs.append(pooled.cpu().numpy().astype(np.float32))
         return np.concatenate(outs)
 
 
@@ -394,8 +418,12 @@ def image_embedding(model: str, image, **kw) -> np.ndarray:
     return rt.process([image])[0]
 
 
-def text_embedding(model: str, text: str, dim: int | None = None, **kw) -> np.ndarray:
-    """One-shot embedding (SQL fn text_embedding(model, text) parity)."""
+def text_embedding(model: str, text: str, dim: int | None = None,
+                   device=None, **kw) -> np.ndarray:
+    """One-shot embedding (SQL fn text_embedding(model, text) parity).
+
+    ``device`` is where a local model runs (default ``cuda``); the hash and
+    REST runtimes ignore it."""
     if model.startswith("hash"):
         d = dim or KNOWN_MODELS.get(model, ("hash", 128))[1]
         return HashRuntime(dim=d).process([text])[0]
@@ -406,7 +434,8 @@ def text_embedding(model: str, text: str, dim: int | None = None, **kw) -> np.nd
         # wrong embeddings (ort_runtime.rs:31-134 pools per model)
         if "pooling" not in kw and model in ONNX_MODELS:
             kw["pooling"] = ONNX_MODELS[model][1]
-        return LocalTransformerRuntime(model_path=model, **kw).process([text])[0]
+        return LocalTransformerRuntime(model_path=model, device=device,
+                                       **kw).process([text])[0]
     rt = get_runtime(rt_name, model=model, **kw)
     return rt.process([text])[0]
 

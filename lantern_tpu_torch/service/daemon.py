@@ -11,7 +11,9 @@ Here the queue is a directory of JSON job files (no Postgres in this stack):
   semantics (queued/running/completed/failed, daemon.rs:229-383)
 - failures retry with exponential backoff: 10s doubling, reset after a
   healthy run (daemon/mod.rs:109-187) — configurable/scaled for tests
-- index and autotune jobs run on the daemon's device (default cuda)
+- index and autotune jobs run on the daemon's device (default cuda), and
+  so do embedding and completion jobs of the "local" runtime whose
+  ``runtime_args`` name no device
 """
 
 from __future__ import annotations
@@ -95,13 +97,21 @@ class Daemon:
         self._backoff = 0.0
 
     # ---- job executors ----
-    def _run_embedding_job(self, spec: dict) -> dict:
+    def _runtime(self, spec: dict):
+        """The job's embedding runtime; a "local" one runs on the daemon's
+        device unless its ``runtime_args`` name one."""
         from lantern_tpu_torch.embeddings import get_runtime
 
+        name = spec.get("runtime", "hash")
+        kw = dict(spec.get("runtime_args", {}))
+        if name == "local":
+            kw.setdefault("device", self.device)
+        return get_runtime(name, **kw)
+
+    def _run_embedding_job(self, spec: dict) -> dict:
         with open(spec["input"]) as f:
             texts = [line.rstrip("\n") for line in f if line.strip()]
-        rt = get_runtime(spec.get("runtime", "hash"),
-                         **spec.get("runtime_args", {}))
+        rt = self._runtime(spec)
         embs = rt.process(texts)
         np.save(spec["output"], embs)
         return {"rows": len(texts), "dim": int(embs.shape[1])}
@@ -110,12 +120,9 @@ class Daemon:
         """add_completion_job analog (lantern_extras/src/daemon.rs:121-227):
         run an LLM completion per input row, write one output line per row
         (JSON) plus per-row usage accounting."""
-        from lantern_tpu_torch.embeddings import get_runtime
-
         with open(spec["input"]) as f:
             rows = [line.rstrip("\n") for line in f if line.strip()]
-        rt = get_runtime(spec.get("runtime", "hash"),
-                         **spec.get("runtime_args", {}))
+        rt = self._runtime(spec)
         if not hasattr(rt, "completion"):
             raise ValueError(
                 f"runtime {spec.get('runtime', 'hash')!r} has no completion support"
@@ -188,10 +195,7 @@ class Daemon:
         NOTIFY (client_embedding_jobs.rs:84-139); a polled file offset plays
         the trigger's role here. Runs until the job is canceled or the
         daemon stops; output .npy is rewritten as rows arrive."""
-        from lantern_tpu_torch.embeddings import get_runtime
-
-        rt = get_runtime(spec.get("runtime", "hash"),
-                         **spec.get("runtime_args", {}))
+        rt = self._runtime(spec)
         done_rows = 0
         embs: list[np.ndarray] = []
         try:

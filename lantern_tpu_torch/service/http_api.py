@@ -217,7 +217,8 @@ class _Handler(BaseHTTPRequestHandler):
                 from lantern_tpu_torch.embeddings import text_embedding
 
                 q = np.asarray(
-                    [text_embedding(b.get("model", "hash"), b["text"], dim=col.dim)],
+                    [text_embedding(b.get("model", "hash"), b["text"],
+                                    dim=col.dim, device=col.device)],
                     np.float32,
                 )
             else:
