@@ -27,6 +27,7 @@ from lantern_tpu_torch.config import Metric
 from lantern_tpu_torch.ops.distance import require_full_f32_matmul
 from lantern_tpu_torch.ops.hamming import hamming_scores
 from lantern_tpu_torch.ops.pq_decode import codebook_bf16, pq_decode
+from lantern_tpu_torch.utils.bench import span
 
 # one-shot scans materialise a [Q, N] score block; beyond this N the scan is
 # blocked to bound it. Hamming blocks too: the reference caps them at 8192
@@ -69,13 +70,17 @@ def _blocked_flat_topk(score_fn, n, k, k_out, block, q_sq, metric):
     ids [Q, k_out] int32), padded with (inf, -1)."""
     best_s = best_i = None
     for start in range(0, n, block):
-        s = score_fn(start, min(start + block, n))
-        bs, bi = torch.topk(s, min(k, s.shape[1]), dim=1, sorted=True)
-        bi = bi + start
-        if best_s is not None:
-            cat_s, cat_i = torch.cat([best_s, bs], 1), torch.cat([best_i, bi], 1)
-            bs, arg = torch.topk(cat_s, min(k, cat_s.shape[1]), dim=1, sorted=True)
-            bi = torch.gather(cat_i, 1, arg)
+        with span("flat.score"):
+            s = score_fn(start, min(start + block, n))
+        with span("flat.topk"):
+            bs, bi = torch.topk(s, min(k, s.shape[1]), dim=1, sorted=True)
+            bi = bi + start
+            if best_s is not None:
+                cat_s = torch.cat([best_s, bs], 1)
+                cat_i = torch.cat([best_i, bi], 1)
+                bs, arg = torch.topk(cat_s, min(k, cat_s.shape[1]), dim=1,
+                                     sorted=True)
+                bi = torch.gather(cat_i, 1, arg)
         best_s, best_i = bs, bi
     finite = torch.isfinite(best_s)
     out_d = torch.where(finite, _score_to_dist(best_s, q_sq, metric),

@@ -41,7 +41,6 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from lantern_tpu_torch import resolve_device
 from lantern_tpu_torch.config import HnswParams, Metric, QuantKind
@@ -51,6 +50,7 @@ from lantern_tpu_torch.graph.search import search_batched
 from lantern_tpu_torch.native import LMAX
 from lantern_tpu_torch.quant.pq import _assign, _split
 from lantern_tpu_torch.quant.scalar import quantize_i8
+from lantern_tpu_torch.utils.bench import span
 
 _INF = float("inf")
 ROUND_GROUP = 16  # rounds between progress reports and hybrid-switch checks
@@ -153,7 +153,7 @@ def _pair_dists(vecs_a, sq_a, vecs_b, sq_b, metric: Metric):
     Hamming rows are int32 words and the sq arguments are unused. bf16 rows
     are widened: their products are exact in f32, as the reference's
     f32-accumulating einsum."""
-    with record_function("build.pair_dists"):
+    with span("build.pair_dists"):
         if metric == Metric.HAMMING:
             return _hamming_pairs(vecs_a, vecs_b)
         dots = torch.bmm(vecs_a.float(), vecs_b.float().transpose(1, 2))
@@ -173,7 +173,7 @@ def select_heuristic_batch(pool_d, pair_d, keep_mask, m: int):
     are kept so far, and no kept column s has pair_d[:, j, s] <= pool_d[:, j].
     Returns the selected mask [B, C] (at most m a row). A loop of C steps
     (the reference's ``lax.scan``)."""
-    with record_function("build.select"):
+    with span("build.select"):
         b, c = pool_d.shape
         close = pair_d <= pool_d[:, :, None]
         selected = torch.zeros((b, c), dtype=torch.bool, device=pool_d.device)
@@ -249,7 +249,7 @@ def _scatter_reverse(
     edges). Each lane reads and writes only its own target's row, so how
     the lanes are cut into chunks of at most ``lane_chunk`` does not change
     the result."""
-    with record_function("build.reverse"):
+    with span("build.reverse"):
         e = targets.shape[0]
         r = adjacency.shape[0]
         dev = targets.device
@@ -354,7 +354,7 @@ def _insert_round(st: BuildState, ids, level_ids: tuple, level_vecs: tuple,
     qvecs = gv[sl]
     qsq = _sq_of(qvecs, metric)
 
-    with record_function("build.candidates"):
+    with span("build.candidates"):
         if flat_cand:
             not_built = torch.arange(cap, device=dev) >= st.n
             d_cand, cand = flat_search(gv, st.sq_norms, qvecs, k=efc,

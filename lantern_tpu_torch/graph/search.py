@@ -43,6 +43,7 @@ from lantern_tpu_torch.native import LMAX
 from lantern_tpu_torch.ops.distance import hamming_dist
 from lantern_tpu_torch.ops.gather_dists import gather_dists
 from lantern_tpu_torch.quant.pq import adc_distances, adc_lut
+from lantern_tpu_torch.utils.bench import span
 
 _INF = float("inf")
 # beam iterations between host-side "any query still active?" checks
@@ -223,14 +224,15 @@ def search_batched(
     if graph.quant == QUANT_PQ:
         lut = adc_lut(queries, graph.pq_codebook, graph.metric)
 
-    if graph.upper_ids is not None and graph.upper_ids.shape[0] > 1:
-        seeds = max(1, min(seeds, ef))
-        entry_ids, entry_d = _upper_entry_scan(graph, queries, q_sq, seeds,
-                                               lut)
-    else:
-        entry_ids, entry_d = _upper_descent(graph, queries, q_sq, lut)
-        entry_ids, entry_d = entry_ids[:, None], entry_d[:, None]
-        seeds = 1
+    with span("beam.entry"):
+        if graph.upper_ids is not None and graph.upper_ids.shape[0] > 1:
+            seeds = max(1, min(seeds, ef))
+            entry_ids, entry_d = _upper_entry_scan(graph, queries, q_sq, seeds,
+                                                   lut)
+        else:
+            entry_ids, entry_d = _upper_descent(graph, queries, q_sq, lut)
+            entry_ids, entry_d = entry_ids[:, None], entry_d[:, None]
+            seeds = 1
 
     # ---- level-0 beam state ----
     beam_d = torch.cat(
@@ -252,43 +254,44 @@ def search_batched(
         act = _active_mask(beam_d, beam_ids, expanded)
         if it % _CHECK_EVERY == 0 and not bool(act.any()):
             break
-        iterations += act.any().int()
+        with span("beam.iter"):
+            iterations += act.any().int()
 
-        # the `expand` best unexpanded entries of each active query
-        unexp_d = torch.where((beam_ids >= 0) & ~expanded & act[:, None],
-                              beam_d, _INF)
-        sorted_d, order = torch.sort(unexp_d, dim=1, stable=True)
-        sel_slots = order[:, :expand]
-        sel_ids = torch.gather(beam_ids, 1, sel_slots)
-        sel_valid = torch.isfinite(sorted_d[:, :expand])
-        exp_ids = torch.where(sel_valid, sel_ids, cap)
-        expanded = expanded | torch.zeros_like(expanded).scatter_(
-            1, sel_slots, sel_valid)
-        exp_log[:, it * expand:(it + 1) * expand] = torch.where(
-            sel_valid, sel_ids, -2)
+            # the `expand` best unexpanded entries of each active query
+            unexp_d = torch.where((beam_ids >= 0) & ~expanded & act[:, None],
+                                  beam_d, _INF)
+            sorted_d, order = torch.sort(unexp_d, dim=1, stable=True)
+            sel_slots = order[:, :expand]
+            sel_ids = torch.gather(beam_ids, 1, sel_slots)
+            sel_valid = torch.isfinite(sorted_d[:, :expand])
+            exp_ids = torch.where(sel_valid, sel_ids, cap)
+            expanded = expanded | torch.zeros_like(expanded).scatter_(
+                1, sel_slots, sel_valid)
+            exp_log[:, it * expand:(it + 1) * expand] = torch.where(
+                sel_valid, sel_ids, -2)
 
-        # neighbor lists -> candidate block [Q, C]
-        nbrs = graph.neighbors0[exp_ids.long()].reshape(q, c)
-        valid = nbrs >= 0
-        in_beam = (nbrs[:, :, None] == beam_ids[:, None, :]).any(2)
-        in_log = (nbrs[:, :, None] == exp_log[:, None, :]).any(2)
-        # dedup unconditionally: expanded nodes can share neighbors
-        fresh = _dedup_fresh(nbrs, valid & ~(in_beam | in_log))
-        visited_n += fresh.sum(1).int()
+            # neighbor lists -> candidate block [Q, C]
+            nbrs = graph.neighbors0[exp_ids.long()].reshape(q, c)
+            valid = nbrs >= 0
+            in_beam = (nbrs[:, :, None] == beam_ids[:, None, :]).any(2)
+            in_log = (nbrs[:, :, None] == exp_log[:, None, :]).any(2)
+            # dedup unconditionally: expanded nodes can share neighbors
+            fresh = _dedup_fresh(nbrs, valid & ~(in_beam | in_log))
+            visited_n += fresh.sum(1).int()
 
-        d = _candidate_dists(graph, queries, q_sq, torch.where(fresh, nbrs, 0),
-                             lut)
-        d = torch.where(fresh, d, _INF)
+            d = _candidate_dists(graph, queries, q_sq,
+                                 torch.where(fresh, nbrs, 0), lut)
+            d = torch.where(fresh, d, _INF)
 
-        # merge: one stable sort, payloads (ids, expanded) gathered along
-        cat_d = torch.cat([beam_d, d], 1)
-        cat_ids = torch.cat([beam_ids, torch.where(fresh, nbrs, -1)], 1)
-        cat_exp = torch.cat([expanded, no_cand], 1)
-        s_d, order = torch.sort(cat_d, dim=1, stable=True)
-        keep = order[:, :ef]
-        beam_d = s_d[:, :ef]
-        beam_ids = torch.gather(cat_ids, 1, keep)
-        expanded = torch.gather(cat_exp, 1, keep)
+            # merge: one stable sort, payloads (ids, expanded) gathered along
+            cat_d = torch.cat([beam_d, d], 1)
+            cat_ids = torch.cat([beam_ids, torch.where(fresh, nbrs, -1)], 1)
+            cat_exp = torch.cat([expanded, no_cand], 1)
+            s_d, order = torch.sort(cat_d, dim=1, stable=True)
+            keep = order[:, :ef]
+            beam_d = s_d[:, :ef]
+            beam_ids = torch.gather(cat_ids, 1, keep)
+            expanded = torch.gather(cat_exp, 1, keep)
 
     # drop tombstones, invalid slots and exclusions; take the final top-k
     rows = torch.clamp(beam_ids, 0, cap - 1).long()

@@ -61,6 +61,7 @@ from lantern_tpu_torch.storage.snapshot import (
     load_snapshot,
     save_snapshot,
 )
+from lantern_tpu_torch.utils.bench import benched, span
 from lantern_tpu_torch.utils.failpoints import failure_point
 
 # the device builder's options that compact / reindex pass on
@@ -371,6 +372,7 @@ class Index:
             self._graph, self._graph_eng = g, eng
         return g
 
+    @benched("search")
     def search(
         self,
         queries: np.ndarray,
@@ -409,47 +411,55 @@ class Index:
         ef = ef or self.params.ef
         seeds = (params or SearchParams()).seeds
         del recall_target  # exact top-k everywhere
-        q = self._query_tensor(queries)
+        with span("search.upload"):
+            q = self._query_tensor(queries)
         graph = self.device_graph
         n = graph.num_nodes  # the mirror's, even across a concurrent swap
         exclude = None
         if allow_labels is not None or deny_labels is not None:
-            mask = np.zeros(graph.cap, bool)
-            if allow_labels is not None:
-                rows = self.rows_for_labels(allow_labels)
-                mask[:] = True
-                mask[rows[rows >= 0]] = False
-            if deny_labels is not None:
-                rows = self.rows_for_labels(deny_labels)
-                mask[rows[rows >= 0]] = True
-            exclude = torch.from_numpy(mask).to(self.device)
+            with span("search.filter"):
+                mask = np.zeros(graph.cap, bool)
+                if allow_labels is not None:
+                    rows = self.rows_for_labels(allow_labels)
+                    mask[:] = True
+                    mask[rows[rows >= 0]] = False
+                if deny_labels is not None:
+                    rows = self.rows_for_labels(deny_labels)
+                    mask[rows[rows >= 0]] = True
+                exclude = torch.from_numpy(mask).to(self.device)
         if rerank is not None:
             if rerank == "auto":
                 rerank = self._auto_rerank_depth(k)
-            res = self._search_rerank(q, k, rerank, exclude)
-            if with_stats:
-                return (*res, {"mode": "flat_pq_rerank", "shortlist": rerank,
-                               "rows_scanned": n})
-            return res
-        if mode == "auto":
-            mode = choose_search_strategy(
-                n, graph.vectors.shape[1], graph.vectors.element_size(),
-                memory_budget(self.device))
-        stats = {"mode": mode}
-        if mode == "flat":
-            d, _, labels = flat_search_graph(graph, q, k=k, exclude=exclude)
-            stats.update(rows_scanned=n, exact_topk=True)
-        elif mode == "graph":
-            out = search_batched(graph, q, k=k, ef=max(ef, k),
-                                 with_stats=with_stats, exclude=exclude,
-                                 seeds=seeds)
-            d, _, labels = out[:3]
-            if with_stats:
-                stats.update({k2: v.cpu().numpy() for k2, v in out[3].items()},
-                             ef=max(ef, k))
+            with span("search.rerank"):
+                d, labels = self._search_rerank(q, k, rerank, exclude)
+            stats = {"mode": "flat_pq_rerank", "shortlist": rerank,
+                     "rows_scanned": n}
         else:
-            raise ValueError(f"unknown search mode {mode!r}")
-        res = d.cpu().numpy(), labels.cpu().numpy().view(np.uint64)
+            if mode == "auto":
+                with span("search.dispatch"):
+                    mode = choose_search_strategy(
+                        n, graph.vectors.shape[1],
+                        graph.vectors.element_size(),
+                        memory_budget(self.device))
+            stats = {"mode": mode}
+            if mode == "flat":
+                with span("search.flat"):
+                    d, _, labels = flat_search_graph(graph, q, k=k,
+                                                     exclude=exclude)
+                stats.update(rows_scanned=n, exact_topk=True)
+            elif mode == "graph":
+                with span("search.graph"):
+                    out = search_batched(graph, q, k=k, ef=max(ef, k),
+                                         with_stats=with_stats,
+                                         exclude=exclude, seeds=seeds)
+                d, _, labels = out[:3]
+                if with_stats:
+                    stats.update({k2: v.cpu().numpy()
+                                  for k2, v in out[3].items()}, ef=max(ef, k))
+            else:
+                raise ValueError(f"unknown search mode {mode!r}")
+        with span("search.results"):  # the host waits for the device here
+            res = d.cpu().numpy(), labels.cpu().numpy().view(np.uint64)
         return (*res, stats) if with_stats else res
 
     def _query_tensor(self, queries) -> torch.Tensor:
@@ -600,7 +610,8 @@ class Index:
 
     def _search_rerank(self, q, k: int, shortlist: int, exclude=None):
         """ADC shortlist + exact re-score on the device (see search); the
-        rows are cached there as bf16."""
+        rows are cached there as bf16. Returns (dists, labels) on the
+        device."""
         if not self.params.pq:
             raise ValueError("rerank= applies to PQ indexes only")
         rows = self._checked_raw_rows()
@@ -615,7 +626,7 @@ class Index:
         d, _, labels = flat_search_graph_rerank(
             self.device_graph, self._rerank_dev, q, k=k,
             shortlist=max(shortlist, k), exclude=exclude)
-        return d.cpu().numpy(), labels.cpu().numpy().view(np.uint64)
+        return d, labels
 
     # ---- maintenance ----
     def _checked_params(self, params: HnswParams | None, what: str):

@@ -16,6 +16,7 @@ import functools
 import torch
 
 from lantern_tpu_torch.config import Metric
+from lantern_tpu_torch.utils.bench import launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -91,7 +92,7 @@ def gather_dists(vectors: torch.Tensor, ids: torch.Tensor,
         return out
     per_vec = 4 if vectors.dtype == torch.float32 else 8
     vec = int(d % per_vec == 0 and vectors.data_ptr() % 16 == 0)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch("k1.launch"):
         rc = _kernel()(
             vectors.data_ptr(), ids.data_ptr(), queries.data_ptr(),
             q_sq.data_ptr(), out.data_ptr(), n, d, q, c,

@@ -24,6 +24,8 @@ import functools
 
 import torch
 
+from lantern_tpu_torch.utils.bench import launch
+
 _U32 = 0xFFFFFFFF
 # elements of the plain version's [Q, rows, W] int64 XOR block (128 MiB; the
 # popcount keeps up to three such buffers alive): bounds its working set at
@@ -131,7 +133,7 @@ def _launch(queries: torch.Tensor, base: torch.Tensor,
         return out
     vec = int(w % 4 == 0 and queries.data_ptr() % 16 == 0
               and base.data_ptr() % 16 == 0)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch("k4.launch"):
         rc = _kernel()(
             queries.data_ptr(), base.data_ptr(),
             None if deleted is None else deleted.data_ptr(), out.data_ptr(),

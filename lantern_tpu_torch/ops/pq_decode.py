@@ -23,6 +23,8 @@ import functools
 
 import torch
 
+from lantern_tpu_torch.utils.bench import launch
+
 
 def codebook_bf16(centroids: torch.Tensor) -> torch.Tensor:
     """The decode operand: the f32 codebook [S, K, dsub] rounded once to
@@ -117,7 +119,7 @@ def pq_decode(codes: torch.Tensor, centroids_bf16: torch.Tensor,
     xsq = torch.empty((n,), dtype=torch.float32, device=dev) if want_xsq else None
     if n == 0:
         return out, xsq
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch("pq_decode.launch"):
         rc = _kernel()(
             codes.data_ptr(), centroids_bf16.data_ptr(), out.data_ptr(),
             xsq.data_ptr() if want_xsq else None, n, s, k, dsub,
