@@ -3,10 +3,18 @@
 Scores are rank-equivalent, not metric-equal: l2sq ranks by 2<q,x> - |x|^2,
 cosine by <q,x>/|x|; true distances are rebuilt for the returned k only.
 The score block is computed in float32 (bf16 rows are widened, so products
-are exact and sums f32, as the reference's f32-accumulating dot) with
-``torch.matmul`` and reduced with ``torch.topk``, which is exact: the port has
-no approximate top-k. Up to ``ONESHOT_MAX_N`` rows the scan is one [Q, N]
-block; above, it walks blocks and merges a running top-k.
+are exact and sums f32, as the reference's f32-accumulating dot) and reduced
+with ``torch.topk``, which is exact: the port has no approximate top-k. Up to
+``ONESHOT_MAX_N`` rows the scan is one [Q, N] block; above, it walks blocks
+and merges a running top-k.
+
+An l2sq block with no per-row scale is the GEMM's own output
+(``_l2sq_scores``): ``torch.addmm`` of the doubled query against the rows,
+with the [N] bias -|x|^2, -inf at excluded rows, added as the block is
+stored (cuBLASLt's bias epilogue on the card), so the block is written once
+and never passed over again. Doubling the query is exact, so the score is
+fl(<2q, x> - |x|^2). Cosine and i8 blocks scale each column, which a bias
+cannot carry: they are a ``torch.matmul`` followed by the scale and the mask.
 
 i8 tables (int8 codes with per-row scales) score bf16-rounded queries
 against the codes widened exactly to f32, then scale the products per row.
@@ -37,22 +45,47 @@ from lantern_tpu_torch.utils.bench import span
 ONESHOT_MAX_N = 1 << 21
 
 
-def _scores(vectors, sq_norms, queries_f32, metric: Metric, vec_scales=None):
-    """[Q, d] x [N, d] -> [Q, N] DESCENDING-better scores (rank-equivalent).
+def _l2sq_scores(qf, x, sq_norms, excluded=None):
+    """The l2sq score block 2<qf, x> - |x|^2, -inf at ``excluded`` rows, as
+    one GEMM: [Q, d] f32 queries (already rounded to the storage type) x
+    [N, d] rows -> [Q, N] f32. The bias is an [N] pass; the [Q, N] block is
+    written once, by the GEMM. Counts each block in ``_l2sq_scores.blocks``.
+    """
+    bias = -sq_norms.float()
+    if excluded is not None:
+        bias.masked_fill_(excluded, float("-inf"))
+    _l2sq_scores.blocks += 1
+    return torch.addmm(bias, qf * 2.0, x.float().T)
+
+
+_l2sq_scores.blocks = 0
+
+
+def _scores(vectors, sq_norms, queries_f32, metric: Metric, vec_scales=None,
+            excluded=None):
+    """[Q, d] x [N, d] -> [Q, N] DESCENDING-better scores (rank-equivalent),
+    -inf at the rows where ``excluded`` ([N] bool) is set.
 
     The query is rounded to the storage type first, as the reference does
     (bf16 tables score bf16 queries; int8 codes score bf16 queries, the
     codes widened exactly, then each row's product times its i8 scale).
+    l2sq with no scale is ``_l2sq_scores``, one GEMM with the bias in its
+    epilogue; cosine and i8 scale the fresh block in place, then mask it.
     """
     qdt = torch.bfloat16 if vectors.dtype == torch.int8 else vectors.dtype
     qf = queries_f32.to(qdt).float()
+    if metric == Metric.L2SQ and vec_scales is None:
+        return _l2sq_scores(qf, vectors, sq_norms, excluded)
     dots = qf @ vectors.float().T  # fresh [Q, N] block: updated in place
     if vec_scales is not None:
         dots.mul_(vec_scales[None, :])
     if metric == Metric.L2SQ:
-        return dots.mul_(2.0).sub_(sq_norms[None, :])
-    # cosine: rank by dot / |x| (|q| constant per row)
-    return dots.div_(torch.clamp(torch.sqrt(sq_norms)[None, :], min=1e-30))
+        dots.mul_(2.0).sub_(sq_norms[None, :])
+    else:  # cosine: rank by dot / |x| (|q| constant per row)
+        dots.div_(torch.clamp(torch.sqrt(sq_norms)[None, :], min=1e-30))
+    if excluded is not None:
+        dots.masked_fill_(excluded[None, :], float("-inf"))
+    return dots
 
 
 def _score_to_dist(score, q_sq, metric: Metric):
@@ -140,11 +173,9 @@ def flat_search(
         dele = None if deleted is None else deleted[start:stop]
         if hamming:  # K4 negates and masks in its epilogue
             return hamming_scores(qf, vectors[start:stop], dele)
-        s = _scores(vectors[start:stop], sq_norms[start:stop], qf, metric,
-                    None if vec_scales is None else vec_scales[start:stop])
-        if dele is not None:
-            s.masked_fill_(dele[None, :], float("-inf"))
-        return s
+        return _scores(vectors[start:stop], sq_norms[start:stop], qf, metric,
+                       None if vec_scales is None else vec_scales[start:stop],
+                       dele)
 
     return _blocked_flat_topk(score_fn, n, min(k, n), k, block, q_sq, metric)
 
@@ -185,18 +216,12 @@ def flat_search_pq(
                       torch.zeros((qf.shape[0], 0), dtype=torch.int32,
                                   device=qf.device), k)
     cb = codebook_bf16(centroids)
-    qb = qf.to(torch.bfloat16).float()
 
     def score_fn(start, stop):
         dec, x_sq = pq_decode(codes[start:stop], cb, want_xsq=True)
-        dots = qb @ dec.float().T
-        if metric == Metric.L2SQ:
-            s = dots.mul_(2.0).sub_(x_sq[None, :])
-        else:
-            s = dots.div_(torch.clamp(torch.sqrt(x_sq)[None, :], min=1e-30))
-        if deleted is not None:
-            s.masked_fill_(deleted[None, start:stop], float("-inf"))
-        return s
+        # dec is bf16: _scores rounds the query to bf16 for the product
+        return _scores(dec, x_sq, qf, metric, excluded=(
+            None if deleted is None else deleted[start:stop]))
 
     return _blocked_flat_topk(score_fn, n, min(k, n), k, min(block, n), q_sq,
                               metric)

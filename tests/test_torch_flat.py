@@ -6,6 +6,12 @@ bf16 rows, i8 codes with per-row scales, the blocked merge (block < n) and
 k > n. Hamming scans (int32 words against the reference's uint32 words)
 return exactly equal distances and ids equal up to the order of tied
 distances, ties at the k-th place included.
+
+The l2sq score block is one GEMM with the bias -|x|^2 (-inf at excluded
+rows) in its epilogue (``flat._l2sq_scores``): it is held to the three
+passes it replaced (2<q,x>, minus |x|^2, then the mask) within f32
+rounding, with -inf exactly at the excluded rows, and its counter to one
+block per l2sq f32, bf16 or PQ block and none for cosine, i8 or hamming.
 """
 
 import jax.numpy as jnp
@@ -17,6 +23,7 @@ from lantern_tpu.flat import flat_search as jax_flat_search
 from lantern_tpu.flat import flat_search_graph as jax_flat_search_graph
 from lantern_tpu.graph.device import to_device as jax_to_device
 from lantern_tpu.native import NativeHnsw as JaxNativeHnsw
+from lantern_tpu_torch import flat
 from lantern_tpu_torch.config import HnswParams, Metric
 from lantern_tpu_torch.flat import flat_search, flat_search_graph
 from lantern_tpu_torch.graph.device import to_device
@@ -158,3 +165,111 @@ def test_flat_search_graph_matches_reference(rng):
         wl[..., 0].astype(np.uint64) | (wl[..., 1].astype(np.uint64) << 32))
     found = ids.numpy()
     assert (found < 300).all() and not ((found < 30) | ((found >= 40) & (found < 80))).any()
+
+
+def _three_pass(q, v, sqn, excluded):
+    """The l2sq block in three passes over it: the product, doubled, minus
+    |x|^2, then the mask."""
+    qdt = v.dtype
+    s = q.to(qdt).float() @ v.float().T
+    s.mul_(2.0).sub_(sqn[None, :])
+    return s.masked_fill_(excluded[None, :], float("-inf"))
+
+
+def _l2sq_case(rng, mask, bf16, n=500, d=24, nq=13):
+    v = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
+    if bf16:
+        v = v.to(torch.bfloat16)
+    sqn = (v.float() ** 2).sum(1)
+    dele = torch.from_numpy(rng.random(n) < 0.2)
+    excluded = {"deleted": dele,
+                "not_built": torch.arange(n) >= 350,
+                "exclude": dele | ((torch.arange(n) >= 40)
+                                   & (torch.arange(n) < 80))}[mask]
+    return v, q, sqn, excluded
+
+
+@pytest.mark.parametrize("mask", ["deleted", "not_built", "exclude"])
+@pytest.mark.parametrize("block", [None, 96])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_l2sq_block_matches_three_passes(rng, mask, block, bf16):
+    v, q, sqn, excluded = _l2sq_case(rng, mask, bf16)
+    n = v.shape[0]
+    step = n if block is None else block
+    for start in range(0, n, step):
+        stop = min(start + step, n)
+        got = flat._scores(v[start:stop], sqn[start:stop], q, Metric.L2SQ,
+                           excluded=excluded[start:stop])
+        want = _three_pass(q, v[start:stop], sqn[start:stop],
+                           excluded[start:stop])
+        ex = excluded[start:stop][None, :].expand_as(got)
+        assert torch.equal(torch.isneginf(got), ex)
+        assert torch.isfinite(got[~ex]).all()
+        # the same f32 products summed in the GEMM's order: within rounding
+        scale = 2.0 * (q.to(v.dtype).float().abs()
+                       @ v[start:stop].float().abs().T) + sqn[start:stop]
+        tol = v.shape[1] * torch.finfo(torch.float32).eps * scale
+        assert ((got - want).abs()[~ex] <= tol[~ex]).all()
+    # the scan's ids are the three-pass block's top-k
+    d, ids = flat_search(v, sqn, q, k=10, block=block, deleted=excluded)
+    full = _three_pass(q, v, sqn, excluded)
+    np.testing.assert_array_equal(ids.numpy(),
+                                  torch.topk(full, 10, dim=1).indices.numpy())
+    assert not excluded[ids.long()].any()
+
+
+@pytest.mark.parametrize("block", [None, 4])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_flat_search_fewer_live_rows_than_k(rng, block, bf16):
+    """A query with fewer live rows than k: the live rows in order, then
+    (inf, -1)."""
+    v, q, sqn, _ = _l2sq_case(rng, "deleted", bf16, n=12, d=8, nq=3)
+    dele = torch.ones(12, dtype=torch.bool)
+    dele[[2, 5, 9]] = False
+    d, ids = flat_search(v, sqn, q, k=5, block=block, deleted=dele)
+    want = _three_pass(q, v, sqn, dele)
+    order = torch.argsort(want[:, [2, 5, 9]], dim=1, descending=True)
+    live = torch.tensor([2, 5, 9])[order]
+    assert torch.equal(ids[:, :3].long(), live)
+    assert torch.isfinite(d[:, :3]).all()
+    assert (ids[:, 3:] == -1).all() and torch.isinf(d[:, 3:]).all()
+
+
+@pytest.mark.parametrize("kind,metric,blocked,blocks", [
+    ("f32", Metric.L2SQ, False, 1), ("f32", Metric.L2SQ, True, 4),
+    ("bf16", Metric.L2SQ, False, 1), ("pq", Metric.L2SQ, False, 1),
+    ("pq", Metric.L2SQ, True, 3), ("f32", Metric.COS, False, 0),
+    ("i8", Metric.L2SQ, False, 0), ("i8", Metric.COS, False, 0),
+    ("hamming", Metric.HAMMING, False, 0), ("pq", Metric.COS, False, 0)])
+def test_l2sq_scores_counts_blocks(rng, monkeypatch, kind, metric, blocked,
+                                   blocks):
+    """One count per l2sq score block formed by the GEMM's epilogue, none
+    where a per-column scale or K4 forms the block."""
+    from lantern_tpu_torch.quant.scalar import quantize_i8
+
+    monkeypatch.setattr(flat._l2sq_scores, "blocks", 0)
+    q = torch.from_numpy(rng.standard_normal((7, 24)).astype(np.float32))
+    dele = torch.from_numpy(rng.random(300) < 0.2)
+    if kind == "pq":
+        codes = torch.from_numpy(rng.integers(0, 16, (300, 4)).astype(np.uint8))
+        cents = torch.from_numpy(
+            rng.standard_normal((4, 16, 6)).astype(np.float32))
+        flat.flat_search_pq(codes, cents, q, k=5, metric=metric,
+                            block=128 if blocked else 1 << 19, deleted=dele)
+    elif kind == "hamming":
+        w = torch.from_numpy(rng.integers(-2**31, 2**31, (300, 2),
+                                          dtype=np.int64).astype(np.int32))
+        flat_search(w, torch.zeros(300), w[:7], k=5, metric=metric,
+                    deleted=dele)
+    else:
+        v = torch.from_numpy(rng.standard_normal((300, 24)).astype(np.float32))
+        scales = None
+        if kind == "i8":
+            v, scales = quantize_i8(v)
+        elif kind == "bf16":
+            v = v.to(torch.bfloat16)
+        sqn = (v.float() ** 2).sum(1)
+        flat_search(v, sqn, q, k=5, metric=metric, deleted=dele,
+                    block=96 if blocked else None, vec_scales=scales)
+    assert flat._l2sq_scores.blocks == blocks
