@@ -14,7 +14,10 @@ with the [N] bias -|x|^2, -inf at excluded rows, added as the block is
 stored (cuBLASLt's bias epilogue on the card), so the block is written once
 and never passed over again. Doubling the query is exact, so the score is
 fl(<2q, x> - |x|^2). Cosine and i8 blocks scale each column, which a bias
-cannot carry: they are a ``torch.matmul`` followed by the scale and the mask.
+cannot carry: they are a ``torch.matmul`` followed by in-place passes over
+the block, the column scale and then the mask, inside the span
+``flat.scale`` (``_cos_scores`` for an unscaled cosine block, counted in
+``_cos_scores.blocks``; ``_scaled``).
 
 i8 tables (int8 codes with per-row scales) score bf16-rounded queries
 against the codes widened exactly to f32, then scale the products per row.
@@ -61,6 +64,35 @@ def _l2sq_scores(qf, x, sq_norms, excluded=None):
 _l2sq_scores.blocks = 0
 
 
+def _cos_scores(qf, x, sq_norms, excluded=None):
+    """The cosine score block <qf, x> / |x|, -inf at ``excluded`` rows: [Q, d]
+    f32 queries (already rounded to the storage type) x [N, d] rows -> [Q, N]
+    f32, the GEMM's fresh block divided and masked in place. Counts each
+    block in ``_cos_scores.blocks``."""
+    _cos_scores.blocks += 1
+    return _scaled(qf @ x.float().T, Metric.COS, sq_norms, None, excluded)
+
+
+_cos_scores.blocks = 0
+
+
+def _scaled(dots, metric: Metric, sq_norms, vec_scales, excluded):
+    """The passes over a fresh [Q, N] product block, in place, inside the
+    span ``flat.scale``: the i8 row scale, then the metric's column pass (l2sq:
+    2 dots - |x|^2; cosine: dots / |x|, |q| being constant along a row),
+    then -inf at the ``excluded`` rows."""
+    with span("flat.scale"):
+        if vec_scales is not None:
+            dots.mul_(vec_scales[None, :])
+        if metric == Metric.L2SQ:
+            dots.mul_(2.0).sub_(sq_norms[None, :])
+        else:
+            dots.div_(torch.clamp(torch.sqrt(sq_norms)[None, :], min=1e-30))
+        if excluded is not None:
+            dots.masked_fill_(excluded[None, :], float("-inf"))
+    return dots
+
+
 def _scores(vectors, sq_norms, queries_f32, metric: Metric, vec_scales=None,
             excluded=None):
     """[Q, d] x [N, d] -> [Q, N] DESCENDING-better scores (rank-equivalent),
@@ -70,22 +102,17 @@ def _scores(vectors, sq_norms, queries_f32, metric: Metric, vec_scales=None,
     (bf16 tables score bf16 queries; int8 codes score bf16 queries, the
     codes widened exactly, then each row's product times its i8 scale).
     l2sq with no scale is ``_l2sq_scores``, one GEMM with the bias in its
-    epilogue; cosine and i8 scale the fresh block in place, then mask it.
+    epilogue; cosine with no scale is ``_cos_scores``; i8 scales the fresh
+    block in place, then masks it (``_scaled``).
     """
     qdt = torch.bfloat16 if vectors.dtype == torch.int8 else vectors.dtype
     qf = queries_f32.to(qdt).float()
-    if metric == Metric.L2SQ and vec_scales is None:
-        return _l2sq_scores(qf, vectors, sq_norms, excluded)
-    dots = qf @ vectors.float().T  # fresh [Q, N] block: updated in place
-    if vec_scales is not None:
-        dots.mul_(vec_scales[None, :])
-    if metric == Metric.L2SQ:
-        dots.mul_(2.0).sub_(sq_norms[None, :])
-    else:  # cosine: rank by dot / |x| (|q| constant per row)
-        dots.div_(torch.clamp(torch.sqrt(sq_norms)[None, :], min=1e-30))
-    if excluded is not None:
-        dots.masked_fill_(excluded[None, :], float("-inf"))
-    return dots
+    if vec_scales is None:
+        if metric == Metric.L2SQ:
+            return _l2sq_scores(qf, vectors, sq_norms, excluded)
+        return _cos_scores(qf, vectors, sq_norms, excluded)
+    return _scaled(qf @ vectors.float().T, metric, sq_norms, vec_scales,
+                   excluded)
 
 
 def _score_to_dist(score, q_sq, metric: Metric):

@@ -1,9 +1,11 @@
 """The benchmark's readers of the program's spans
-(``portbench/metrics/{dispatch.host_ms,flat.score_ms,search.idle_ms}.py``)
-on synthetic trace records, each against a value computed by hand.
+(``portbench/metrics/{dispatch.host_ms,flat.score_ms,search.idle_ms,
+flat.scale_ms,flat.score_roofline}.py``) on synthetic trace records, each
+against a value computed by hand, and the score block's operations and
+bytes (``portbench/roofline/score_block.py``).
 
 A record without the spans (the trace of a program that has none) and a
-run without a trace read None.
+run without a trace read None, never 0.
 """
 
 import pytest
@@ -12,6 +14,9 @@ from portbench import spec, trace
 
 READERS = ("dispatch.host_ms", "flat.score_ms", "search.idle_ms")
 CELLS = ["sift1m.auto", "cohere1m-b1.auto"]
+# the cosine cell's readers
+COS_READERS = ("flat.scale_ms", "flat.score_roofline")
+COS_CELLS = ["openai1m.auto"]
 iv = trace.Interval
 
 
@@ -90,3 +95,86 @@ def test_benchmark_lists_the_reader(name):
     assert entry["unit"] == "ms/batch" and entry["source"] == "device_trace"
     for cell in CELLS:
         assert name in [m["name"] for m in spec.cell(cell).per_layer]
+
+
+def _tensor(shape, itemsize=4):
+    return {"shape": shape, "itemsize": itemsize}
+
+
+# ``flat._scores(vectors, sq_norms, queries_f32, metric, vec_scales,
+# excluded)`` at openai1m.auto's block: 1M x 1536 f32 rows, 1024 queries,
+# the tombstone mask
+SCORE_CALL = {"args": [_tensor((1_000_000, 1536)), _tensor((1_000_000,)),
+                       _tensor((1024, 1536)), 1, None,
+                       _tensor((1_000_000,), 1)], "kwargs": {}}
+
+
+def _cos_rec(scale=True, score=True, calls=2):
+    rec = _rec()
+    if scale:
+        rec.host_device_s["flat.scale"] = 0.01
+    if not score:
+        del rec.host_device_s["flat.score"]
+    rec.launches = {"score": [SCORE_CALL] * calls}
+    return rec
+
+
+def test_score_block_operations_and_bytes():
+    roof = spec.load_module(spec.ROOT, "roofline", "score_block")
+    ops, kind, nbytes = roof.cost(SCORE_CALL)
+    assert kind == "tf32" and ops == 2 * 1024 * 1_000_000 * 1536
+    assert round(ops / 1e12, 3) == 3.146
+    assert round(nbytes / 1e9, 2) == 10.25
+    peaks = spec.load_module(spec.ROOT, "roofline", "peaks")
+    # bound by its operations: 6.36 ms against the bytes' 3.06 ms
+    assert round(peaks.bound_s(ops, kind, nbytes) * 1e3, 2) == 6.36
+    assert round(nbytes / peaks.HBM_BYTES_PER_S * 1e3, 2) == 3.06
+    # no mask, bf16 rows: the mask's N bytes go, the rows' halve
+    bare = {"args": [_tensor((1_000_000, 1536), 2), _tensor((1_000_000,)),
+                     _tensor((1024, 1536))], "kwargs": {"metric": 1}}
+    assert roof.cost(bare)[2] == nbytes - 1_000_000 - 1_000_000 * 1536 * 2
+    empty = {"args": [_tensor((0, 1536)), _tensor((0,)),
+                      _tensor((1024, 1536)), 1], "kwargs": {}}
+    assert roof.cost(empty) is None
+
+
+def test_flat_scale_ms_is_the_kernels_under_the_span():
+    assert _read("flat.scale_ms", _cos_rec()) == pytest.approx(
+        0.01 * 1e3 / 2, abs=1e-9)
+
+
+def test_flat_score_roofline_is_the_bounds_over_the_span():
+    # two blocks' least times over the 0.16 s under ``flat.score``
+    bound = 2 * 2 * 1024 * 1_000_000 * 1536 / 495e12
+    assert _read("flat.score_roofline", _cos_rec()) == pytest.approx(
+        100 * bound / 0.16, rel=1e-12)
+
+
+@pytest.mark.parametrize("name,rec", [
+    ("flat.scale_ms", _cos_rec(scale=False)),  # an l2sq or parent's trace
+    ("flat.scale_ms", _rec(spans=False)),
+    ("flat.score_roofline", _cos_rec(score=False)),
+    ("flat.score_roofline", _cos_rec(calls=0)),  # no block probed
+    ("flat.score_roofline", _rec(spans=False))],
+    ids=["scale-absent", "scale-empty", "roofline-no-span",
+         "roofline-no-block", "roofline-empty"])
+def test_cos_readers_none_where_nothing_was_recorded(name, rec):
+    assert _read(name, rec) is None
+
+
+@pytest.mark.parametrize("name", COS_READERS)
+def test_cos_readers_none_without_a_trace(name):
+    assert _read(name, None) is None
+
+
+@pytest.mark.parametrize("name", COS_READERS)
+def test_benchmark_lists_the_cos_reader(name):
+    entry = next(m for m in spec.benchmark()["per_layer"]
+                 if m["name"] == name)
+    assert entry["workloads"] == COS_CELLS
+    assert entry["source"] == "device_trace"
+    assert entry["layer"] == "flat scan (flat.py)"
+    for cell in COS_CELLS:
+        assert name in [m["name"] for m in spec.cell(cell).per_layer]
+    for cell in CELLS:
+        assert name not in [m["name"] for m in spec.cell(cell).per_layer]

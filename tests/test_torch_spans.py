@@ -23,7 +23,8 @@ from lantern_tpu_torch.utils import bench
 K = 10
 SPANS = {"search", "search.upload", "search.filter", "search.dispatch",
          "search.flat", "search.graph", "search.rerank", "search.results",
-         "flat.score", "flat.topk", "beam.entry", "beam.iter"}
+         "flat.score", "flat.scale", "flat.topk", "beam.entry",
+         "beam.iter"}
 MODES = {"auto": dict(), "graph": dict(mode="graph"),
          "rerank": dict(rerank=40)}
 
@@ -36,9 +37,10 @@ def _data(seed=3, n=1200, dim=32, nq=24):
     return base.astype(np.float32), q.astype(np.float32)
 
 
-def _index(device, pq=False, n=1200):
+def _index(device, pq=False, n=1200, **kw):
     base, q = _data(n=n)
-    kw = dict(pq=True, num_subvectors=8, num_centroids=32) if pq else {}
+    if pq:
+        kw.update(pq=True, num_subvectors=8, num_centroids=32)
     ix = lantern_tpu_torch.Index(HnswParams(dim=32, m=8, ef_construction=48,
                                             **kw),
                                  capacity=256, seed=0, device=device)
@@ -177,6 +179,29 @@ def test_counters_count_each_span_once(indexes, monkeypatch):
     assert all(s["total_s"] > 0 for s in got.values())
 
 
+@pytest.mark.parametrize("kind,scaled", [
+    ("cos", True), ("i8", True), ("l2sq", False), ("hamming", False)])
+def test_scale_span_inside_score(counters_off, kind, scaled):
+    """``flat.scale`` (the column scale and the mask after the GEMM) lies
+    inside ``flat.score`` for cosine and i8 blocks, and is never entered
+    where the GEMM's epilogue (l2sq) or K4 (hamming) forms the block."""
+    if kind == "hamming":
+        ix, q = _hamming_index("cpu")
+    else:
+        kw = {"cos": dict(metric=Metric.COS), "i8": dict(quant=QuantKind.I8),
+              "l2sq": {}}[kind]
+        ix, q = _index("cpu", **kw)
+    _, events = _profiled(lambda: ix.search(q, k=K, mode="flat"))
+    tree = _tree(events)
+    assert _children(tree, "search.flat") == ["flat.score", "flat.topk"]
+    if scaled:
+        assert _children(tree, "flat.score") == ["flat.scale"]
+        assert _children(tree, "flat.scale") == []
+    else:
+        assert _children(tree, "flat.score") == []
+        assert "flat.scale" not in {name for name, _ in tree}
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_results_equal_with_spans_on_and_off(indexes, monkeypatch, mode):
     ixs, q = indexes
@@ -232,18 +257,20 @@ def _hamming_index(device, n=1200, words=8):
 def test_span_images_are_no_device_work_on_card(cuda, counters_off):
     """No device interval the benchmark keeps bears a span's name, and each
     span holds the device time of the kernels launched in it, the
-    hand-written ones (K1, K4, the PQ decode) included."""
+    hand-written ones (K1, K4, the PQ decode) included, and the cosine
+    block's passes inside ``flat.scale``."""
     from portbench import trace
 
     ixs = {"f32": _index(cuda), "pq": _index(cuda, pq=True),
-           "b1": _hamming_index(cuda)}
+           "b1": _hamming_index(cuda), "cos": _index(cuda, metric=Metric.COS)}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for name, kw, span, kernel in (
             ("f32", {}, "flat.score", None),
             ("b1", {}, "flat.score", "hamming_kernel"),
             ("f32", dict(mode="graph"), "beam.iter", "gather_dists"),
-            ("pq", dict(rerank=40), "flat.score", "pq_decode")):
+            ("pq", dict(rerank=40), "flat.score", "pq_decode"),
+            ("cos", {}, "flat.scale", None)):
         ix, q = ixs[name]
         ix.search(q, k=K, **kw)  # the kernels' builds, outside the trace
         torch.cuda.synchronize()
