@@ -8,8 +8,9 @@ Phases, each of which exits non-zero on failure:
 1. environment: torch, the card, ``nvidia-smi`` name, power limit and
    maximum SM clock;
 2. build, in parallel: the K1 kernel (``csrc/gather_dists.cu``), the PQ
-   decode kernel (``csrc/pq_decode.cu``) and the hamming kernel K4
-   (``csrc/hamming.cu``), nvcc for sm_90a, and the native host engine (g++),
+   decode kernel (``csrc/pq_decode.cu``), the hamming kernel K4
+   (``csrc/hamming.cu``) and the cosine score block (``csrc/cos_block.cu``),
+   nvcc for sm_90a, and the native host engine (g++),
    all from this checkout's sources;
 3. K1 against its plain PyTorch version on the card at the beam's shapes
    (N = n rows, d = 128, Q = 1024, C in {1, 32}; f32 and bf16; l2sq and cos),
@@ -47,7 +48,15 @@ Phases, each of which exits non-zero on failure:
    there beside its bound, its plain version and two yardsticks of the same
    +-1 product on the tensor cores (a bf16 ``torch.matmul`` and an int8
    ``torch._int_mm``); it fails if K4 reads under 0.95 of its bound;
-   ``hamming_exact_topk`` against a top-k of the plain distances;
+   ``hamming_exact_topk`` against a top-k of the plain distances; then the
+   cosine score block kernel (``ops/cos_block.py``) at ``openai1m``'s flat
+   shape (Q = 1024, N = 1M, d = 1536 unit rows made on the card, a tenth
+   masked): one ``flat_search`` through it (one launch, counted from 0),
+   whose distances against float64 give its ``dist_gap`` (at most
+   COS_DIST_GAP_MAX), its whole block against the plain version and
+   float64 with -inf exactly at the masked rows, and its time beside its
+   bound, the plain version and two library products the port never calls
+   (the FFMA and the TF32 ``torch.matmul``);
 9. the hamming main path: ``Index(HnswParams(dim=1024, metric=HAMMING,
    quant=B1))`` over HAM_PATH_N clustered 1024-bit rows (4096 random
    centres, each bit flipped with p = 1/8) given as packed uint32 words,
@@ -221,8 +230,9 @@ from torch.autograd import DeviceType
 from lantern_tpu_torch import HnswParams, Index
 from lantern_tpu_torch.config import Metric, QuantKind
 from lantern_tpu_torch.csrc.build import library_path
-from lantern_tpu_torch.flat import flat_search_pq
+from lantern_tpu_torch.flat import flat_search, flat_search_pq
 from lantern_tpu_torch.native import get_lib
+from lantern_tpu_torch.ops.cos_block import cos_block, cos_scores_ref
 from lantern_tpu_torch.ops.distance import exact_search, unpack_bits
 from lantern_tpu_torch.ops.gather_dists import gather_dists, gather_dists_ref
 from lantern_tpu_torch.ops.hamming import (
@@ -295,6 +305,16 @@ K4_CASES = [(37, 333, 1), (1000, 99_991, 3), (1024, 65_537, 4),
             (1023, 100_003, 32), (77, 20_011, 48), (1024, 30_001, 128)]
 HAM_DIM, HAM_CENTRES = 1024, 4096
 HAM_WORDS = HAM_DIM // 32
+# the cosine score block kernel's phase: openai1m's flat scan (1M x 1536 unit
+# rows, 4096 centres, jitter 1.25, a tenth masked; 1024 queries), the TF32
+# peak its bound counts, the widest dist_gap it may read (twice the FFMA
+# GEMM's 2.05e-6 in the benchmark, a third of the cell's 1.2e-5 limit), the
+# tolerance of its block against the plain version and float64 in units of
+# |q| (f32 accuracy reads ~3e-7; TF32 operands 4e-5)
+COS_N, COS_DIM, COS_JITTER, COS_MASKED = 1_000_000, 1536, 1.25, 0.1
+PEAK_TF32_FLOPS = 495e12
+COS_DIST_GAP_MAX = 4e-6
+COS_REF_TOL = 4e-6
 HAM_FLAT_RECALL_MIN, HAM_GRAPH_RECALL_MIN = 0.999, 0.90
 I8_RECALL_MIN = 0.85  # the reference's own i8 floor (tests/test_quant.py:79)
 I8_DEQ_FLAT_RECALL_MIN = 0.98
@@ -501,11 +521,13 @@ def phase_build():
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
         kernels = {name: pool.submit(library_path, name)
-                   for name in ("gather_dists", "pq_decode", "hamming")}
+                   for name in ("gather_dists", "pq_decode", "hamming",
+                                "cos_block")}
         native = pool.submit(get_lib)
         sos = {name: f.result() for name, f in kernels.items()}
         native.result()
-    log("build: lantern_tpu_torch/csrc/{gather_dists,pq_decode,hamming}.cu "
+    log("build: lantern_tpu_torch/csrc/{gather_dists,pq_decode,hamming,"
+        "cos_block}.cu "
         f"(nvcc sm_90a) and the native engine (g++) in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, so in sos.items():
@@ -1040,6 +1062,105 @@ def phase_hamming_kernel(n, seed):
         fail(f"hamming_block timed under {BOUND_SHARE_MIN} of its bound: "
              f"{row}")
     return row, max_abs
+
+
+def phase_cos_block(seed):
+    """The cosine score block kernel at openai1m's flat shape: one flat scan
+    through it held against float64 (``dist_gap``), its whole block against
+    the plain version and float64, then timed beside its bound, the plain
+    version and the FFMA and TF32 products. Returns the shape's row."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    centres = torch.randn((4096, COS_DIM), device="cuda", generator=gen)
+
+    def unit(n):
+        x = torch.randn((n, COS_DIM), device="cuda", generator=gen)
+        x.mul_(COS_JITTER).add_(centres[torch.randint(
+            0, 4096, (n,), device="cuda", generator=gen)])
+        return x.div_(torch.linalg.vector_norm(x, dim=1, keepdim=True))
+
+    rows, queries = unit(COS_N), unit(BATCH)
+    sqn = (rows * rows).sum(1)
+    masked = torch.rand(COS_N, device="cuda", generator=gen) < COS_MASKED
+    cos_block.launches = 0
+    d, ids = flat_search(rows, sqn, queries, k=K, metric=Metric.COS,
+                         exact=True, deleted=masked)
+    torch.cuda.synchronize()
+    launches = cos_block.launches
+    if launches != 1:
+        fail(f"flat_search made {launches} cos_block launches, not 1")
+    # the whole block against the plain version, -inf exactly where masked
+    got = cos_block(queries, rows, sqn, masked)
+    want = cos_scores_ref(queries, rows, sqn, masked)
+    mask_ok = bool(torch.equal(torch.isneginf(got),
+                               masked[None, :].expand_as(got)))
+    ref_err = float((got - want).abs_().masked_fill_(masked[None, :], 0).max())
+    del want
+    # against float64, chunk by chunk: the block, the exact k-th distance
+    # among the unmasked rows, then the returned rows' exact distances
+    kth, f64_err = None, 0.0
+    qd = queries.double()
+    qn = torch.linalg.vector_norm(qd, dim=1)
+    for s0 in range(0, COS_N, 65_536):
+        cols = slice(s0, s0 + 65_536)
+        xb = rows[cols].double()
+        dots = qd @ xb.T
+        blk = dots / torch.sqrt(sqn[cols].double())[None, :]
+        blk.sub_(got[:, cols].double()).abs_()
+        f64_err = max(f64_err, float(
+            blk.masked_fill_(masked[None, cols], 0).max()))
+        dd = 1.0 - dots / (qn[:, None] * torch.linalg.vector_norm(
+            xb, dim=1)[None, :])
+        dd.masked_fill_(masked[None, cols], float("inf"))
+        top = torch.topk(dd, K, dim=1, largest=False).values
+        kth = top if kth is None else torch.topk(
+            torch.cat([kth, top], 1), K, dim=1, largest=False).values
+    del xb, dots, blk, dd, got
+    kth = kth[:, -1]
+    xr = rows[ids.long()].double()
+    exact = 1.0 - (xr * qd[:, None, :]).sum(-1) / (
+        torch.linalg.vector_norm(xr, dim=-1) * qn[:, None])
+    del xr
+    dist_gap = float(((d.double() - exact).abs() / kth[:, None]).max())
+    miss = float((exact > kth[:, None] + 1e-12).double().mean())
+    del exact
+
+    times = {}
+    fn = lambda x: cos_block(queries, x, sqn, masked)  # noqa: E731
+    times["call_ms"] = cuda_ms(fn, [rows])
+    times["device_ms"] = device_ms(fn, [rows], per_call=2)  # split, block
+    times["ms"] = times["device_ms"] or times["call_ms"]
+    # the plain version: three FFMA GEMMs and the passes, seconds a call
+    times["plain_ms"] = cuda_ms(
+        lambda x: cos_scores_ref(queries, x, sqn, masked), [rows], warm=1,
+        reps=2)
+    # yardsticks the port never calls: the FFMA product (the block's GEMM
+    # before this kernel) and a TF32 one, which fails the cell's check
+    for key, tf32 in (("library", False), ("library_tf32", True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            times[key + "_call_ms"] = cuda_ms(lambda x: queries @ x.T, [rows])
+            times[key + "_device_ms"] = device_ms(lambda x: queries @ x.T,
+                                                  [rows])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        times[key + "_ms"] = (times[key + "_device_ms"]
+                              or times[key + "_call_ms"])
+    ops = 2 * BATCH * COS_N * COS_DIM
+    nbytes = (BATCH + COS_N) * COS_DIM * 4 + COS_N * 5 + BATCH * COS_N * 4
+    bound_ms = max(ops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    row = dict(q=BATCH, n=COS_N, d=COS_DIM, masked=COS_MASKED,
+               launches=launches, dist_gap=dist_gap, miss_share=miss, ref_max_abs_err=ref_err,
+               f64_max_abs_err=f64_err, mask_ok=mask_ok, **times,
+               bound_ms=bound_ms, bound_by="operations",
+               three_products_bound_ms=3 * ops / PEAK_TF32_FLOPS * 1e3,
+               share_of_bound=bound_ms / times["ms"])
+    log("cos_block " + json.dumps(row))
+    if not (mask_ok and ref_err <= COS_REF_TOL and f64_err <= COS_REF_TOL
+            and dist_gap <= COS_DIST_GAP_MAX):
+        fail(f"cos_block disagrees: {row}")
+    if times["ms"] < BOUND_SHARE_MIN * row["three_products_bound_ms"]:
+        fail(f"cos_block timed under {BOUND_SHARE_MIN} of its bound: {row}")
+    return row
 
 
 _POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
@@ -3121,6 +3242,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     k4, k4_max_abs = phase_hamming_kernel(args.n, args.seed)
     torch.cuda.synchronize()
+    cos = phase_cos_block(args.seed)
+    torch.cuda.synchronize()
     lap("kernels")
     launches, host_build_s, gt_i, main_results = phase_main_path(
         base, queries, base_dev, queries_dev, args.seed)
@@ -3244,6 +3367,20 @@ def main(argv=None):
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
+    }, {
+        "name": "cos_block",
+        "route": "cuda",
+        "source": "lantern_tpu_torch/csrc/cos_block.cu",
+        "replaces": "none: the flat scan's f32 cosine block (an FFMA SGEMM "
+                    "and two passes), left to XLA in lantern_tpu/flat.py",
+        "launches": cos["launches"],
+        "dist_gap": cos["dist_gap"],
+        "ms": cos["ms"],
+        "plain_ms": cos["plain_ms"],
+        "bound_ms": cos["bound_ms"],
+        "bound_by": cos["bound_by"],
+        "library_ms": cos["library_ms"],
+        "library_tf32_ms": cos["library_tf32_ms"],
     }]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,13 @@ with the [N] bias -|x|^2, -inf at excluded rows, added as the block is
 stored (cuBLASLt's bias epilogue on the card), so the block is written once
 and never passed over again. Doubling the query is exact, so the score is
 fl(<2q, x> - |x|^2). Cosine and i8 blocks scale each column, which a bias
-cannot carry: they are a ``torch.matmul`` followed by in-place passes over
-the block, the column scale and then the mask, inside the span
-``flat.scale`` (``_cos_scores`` for an unscaled cosine block, counted in
-``_cos_scores.blocks``; ``_scaled``).
+cannot carry. An unscaled cosine block (``_cos_scores``, counted in
+``_cos_scores.blocks``) of CUDA f32 rows with d % 4 == 0 is one launch of
+the split-TF32 tensor-core kernel ``ops/cos_block.py``, the divide and the
+mask in its epilogue, so the block is written once. Other cosine blocks
+(CPU tensors, bf16 and PQ-cosine rows, other widths) and i8 blocks are a
+``torch.matmul`` followed by in-place passes over the block, the column
+scale and then the mask, inside the span ``flat.scale`` (``_scaled``).
 
 i8 tables (int8 codes with per-row scales) score bf16-rounded queries
 against the codes widened exactly to f32, then scale the products per row.
@@ -35,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from lantern_tpu_torch.config import Metric
+from lantern_tpu_torch.ops.cos_block import cos_block, takes
 from lantern_tpu_torch.ops.distance import require_full_f32_matmul
 from lantern_tpu_torch.ops.hamming import hamming_scores
 from lantern_tpu_torch.ops.pq_decode import codebook_bf16, pq_decode
@@ -67,9 +71,14 @@ _l2sq_scores.blocks = 0
 def _cos_scores(qf, x, sq_norms, excluded=None):
     """The cosine score block <qf, x> / |x|, -inf at ``excluded`` rows: [Q, d]
     f32 queries (already rounded to the storage type) x [N, d] rows -> [Q, N]
-    f32, the GEMM's fresh block divided and masked in place. Counts each
-    block in ``_cos_scores.blocks``."""
+    f32. Rows that ``ops/cos_block.takes`` (CUDA f32, d % 4 == 0) go to
+    ``cos_block`` (one kernel, the divide and the mask in its epilogue); any
+    other block is the GEMM's fresh block divided and masked in place.
+    Counts each block in ``_cos_scores.blocks``."""
     _cos_scores.blocks += 1
+    if takes(x):
+        return cos_block(qf.contiguous(), x, sq_norms.float().contiguous(),
+                         None if excluded is None else excluded.contiguous())
     return _scaled(qf @ x.float().T, Metric.COS, sq_norms, None, excluded)
 
 
@@ -102,8 +111,9 @@ def _scores(vectors, sq_norms, queries_f32, metric: Metric, vec_scales=None,
     (bf16 tables score bf16 queries; int8 codes score bf16 queries, the
     codes widened exactly, then each row's product times its i8 scale).
     l2sq with no scale is ``_l2sq_scores``, one GEMM with the bias in its
-    epilogue; cosine with no scale is ``_cos_scores``; i8 scales the fresh
-    block in place, then masks it (``_scaled``).
+    epilogue; cosine with no scale is ``_cos_scores`` (the split-TF32
+    kernel on the card); i8 scales the fresh block in place, then masks it
+    (``_scaled``).
     """
     qdt = torch.bfloat16 if vectors.dtype == torch.int8 else vectors.dtype
     qf = queries_f32.to(qdt).float()

@@ -183,8 +183,9 @@ def test_counters_count_each_span_once(indexes, monkeypatch):
     ("cos", True), ("i8", True), ("l2sq", False), ("hamming", False)])
 def test_scale_span_inside_score(counters_off, kind, scaled):
     """``flat.scale`` (the column scale and the mask after the GEMM) lies
-    inside ``flat.score`` for cosine and i8 blocks, and is never entered
-    where the GEMM's epilogue (l2sq) or K4 (hamming) forms the block."""
+    inside ``flat.score`` for cosine blocks off the card and i8 blocks, and
+    is never entered where the GEMM's epilogue (l2sq) or K4 (hamming) forms
+    the block."""
     if kind == "hamming":
         ix, q = _hamming_index("cpu")
     else:
@@ -257,12 +258,15 @@ def _hamming_index(device, n=1200, words=8):
 def test_span_images_are_no_device_work_on_card(cuda, counters_off):
     """No device interval the benchmark keeps bears a span's name, and each
     span holds the device time of the kernels launched in it, the
-    hand-written ones (K1, K4, the PQ decode) included, and the cosine
-    block's passes inside ``flat.scale``."""
+    hand-written ones (K1, K4, the PQ decode, the f32 cosine block's
+    kernel, which leaves ``flat.scale`` unentered) included, and the passes
+    of bf16 cosine and i8 blocks inside ``flat.scale``."""
     from portbench import trace
 
     ixs = {"f32": _index(cuda), "pq": _index(cuda, pq=True),
-           "b1": _hamming_index(cuda), "cos": _index(cuda, metric=Metric.COS)}
+           "b1": _hamming_index(cuda), "cos": _index(cuda, metric=Metric.COS),
+           "cos_bf16": _index(cuda, metric=Metric.COS, quant=QuantKind.F16),
+           "i8": _index(cuda, quant=QuantKind.I8)}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for name, kw, span, kernel in (
@@ -270,7 +274,9 @@ def test_span_images_are_no_device_work_on_card(cuda, counters_off):
             ("b1", {}, "flat.score", "hamming_kernel"),
             ("f32", dict(mode="graph"), "beam.iter", "gather_dists"),
             ("pq", dict(rerank=40), "flat.score", "pq_decode"),
-            ("cos", {}, "flat.scale", None)):
+            ("cos", {}, "flat.score", "cos_block_kernel"),
+            ("cos_bf16", {}, "flat.scale", None),
+            ("i8", {}, "flat.scale", None)):
         ix, q = ixs[name]
         ix.search(q, k=K, **kw)  # the kernels' builds, outside the trace
         torch.cuda.synchronize()
@@ -289,3 +295,5 @@ def test_span_images_are_no_device_work_on_card(cuda, counters_off):
             assert took > 0 and under >= took * (1 - 1e-6), (name, kernel)
         if name == "b1":  # K4's epilogue scores: the span's one kernel
             assert under == pytest.approx(took, rel=1e-6)
+        if name == "cos":  # the divide and the mask are the kernel's
+            assert "flat.scale" not in rec.host_device_s
