@@ -24,6 +24,17 @@ entry point, the maximum level and the node count are host ints, updated
 round by round from the numpy levels with no device read. Upper levels
 select from the exact nearest nodes of that level.
 
+The plan is written once, over a leading shard axis of S shards: the host
+plan (``plan_build`` / ``plan_insert``: level draws, upper slots, capacity
+growth, the per-level id lists with their UPPER_POOL_CAP subsample), the
+tables (``build_tables`` / ``grown_tables``) and one ``BuildState`` a shard
+(``build_states``), the quantised round trip of an insert (``round_rows``,
+``stored_rows``), the round groups with their flat / beam route
+(``build_groups`` / ``insert_groups``) and ``insert_rounds``, which runs
+each round over every shard. ``build_on_device`` and
+``device_insert`` are its S=1 fronts; ``parallel/sharded.py`` runs it over
+the shards of a rank.
+
 The reference's ``lax.scan``s become Python loops (the selection loop runs
 C columns of a few small launches each) and its donated state a
 ``BuildState`` updated in place. Masked lanes write to dedicated dummy
@@ -58,6 +69,9 @@ ROUND_GROUP = 16  # rounds between progress reports and hybrid-switch checks
 UPPER_POOL_CAP = 32768
 # f32 elements of the +-1 operands one hamming pair-distance product holds
 _PM1_CHUNK = 1 << 27
+# a build's tables, each a BuildState's tensor field
+TABLES = ("vectors", "sq_norms", "neighbors0", "upper_neighbors", "upper_slot",
+          "levels")
 
 
 @dataclasses.dataclass
@@ -316,15 +330,6 @@ def _scatter_reverse(
             _masked_set(adjacency, lrow, new_row, active, dummy_row)
 
 
-def _level_tables(gv, level_ids, metric: Metric):
-    """(rows, squared norms) of each level's id list (-1 pads gather row 0)."""
-    out = []
-    for lids in level_ids:
-        v = gv[torch.clamp(lids, min=0).long()]
-        out.append((v, _sq_of(v, metric)))
-    return tuple(out)
-
-
 def _insert_round(st: BuildState, ids, level_ids: tuple, level_vecs: tuple,
                   ids_dev, efc: int, max_in: int, flat_cand: bool = False):
     """Insert one round of node ids (numpy [B] int32, -1 = padding lane)
@@ -334,8 +339,8 @@ def _insert_round(st: BuildState, ids, level_ids: tuple, level_vecs: tuple,
     >= l, -1 padded); upper-level neighbours are selected from the exact
     nearest built nodes of the level. ``flat_cand``: the level-0 pool comes
     from a masked flat scan of the built prefix instead of a beam search.
-    ``level_vecs``: the levels' gathered rows and squared norms
-    (``_level_tables``); ``ids_dev``: ``ids`` on the device. Levels with no
+    ``level_vecs``: the levels' gathered rows and squared norms (-1 pads
+    gather row 0); ``ids_dev``: ``ids`` on the device. Levels with no
     node of the round are skipped: their scatters would only rewrite the
     dummy rows.
     """
@@ -461,17 +466,36 @@ def _insert_round(st: BuildState, ids, level_ids: tuple, level_vecs: tuple,
     return st
 
 
-def insert_rounds(st: BuildState, ids2d, level_ids: tuple, efc: int,
-                  max_in: int, flat_cand: bool = False) -> BuildState:
-    """Run the rounds of ``ids2d`` (numpy [R, size]) one after the other,
-    in place. The levels' row gathers are made once for the group."""
-    ids2d = np.asarray(ids2d, np.int32)
-    level_vecs = _level_tables(st.vectors, level_ids, Metric(st.metric))
-    ids_dev = torch.from_numpy(ids2d).to(st.vectors.device)
-    for r in range(ids2d.shape[0]):
-        _insert_round(st, ids2d[r], level_ids, level_vecs, ids_dev[r], efc,
-                      max_in, flat_cand)
-    return st
+def insert_rounds(states, level_ids, groups, efc: int, max_in: int) -> None:
+    """Run the rounds of ``groups`` into the S shards' ``states``, in place.
+
+    ``groups`` yields (rounds, flat_cand): ``rounds`` numpy [S, size] int32
+    ids (-1 = padding lane), one a round in order, all on the pool route
+    ``flat_cand``; a group's ids go to the device in one copy.
+    ``level_ids``: the per-level [S, size] id lists (``_level_id_lists``).
+    The levels' rows are gathered once. A shard whose lanes are all -1 in a
+    round skips it (its round would only rewrite the dummy rows); shards
+    are independent, so their order inside a round does not change the
+    result.
+    """
+    dev = states[0].vectors.device
+    metric = Metric(states[0].metric)
+    lids = [torch.from_numpy(a).to(dev) for a in level_ids]
+    shards = []
+    for si, st in enumerate(states):
+        lv = tuple(a[si] for a in lids)
+        rows = [st.vectors[torch.clamp(ids, min=0).long()] for ids in lv]
+        shards.append((lv, tuple((r, _sq_of(r, metric)) for r in rows)))
+    for rounds, flat_cand in groups:
+        ids_dev = torch.from_numpy(np.concatenate(rounds, 1)).to(dev)
+        at = 0
+        for ids in rounds:
+            size = ids.shape[1]
+            for si, st in enumerate(states):
+                if ids[si, 0] >= 0:
+                    _insert_round(st, ids[si], *shards[si], ids_dev[si, at:at + size],
+                                  efc, max_in, flat_cand)
+            at += size
 
 
 def ramped_batches(n: int, batch: int, min_batch: int = 32):
@@ -491,27 +515,49 @@ def ramped_batches(n: int, batch: int, min_batch: int = 32):
         pos += min(b, n - pos)
 
 
-def _grouped_round_ids(n: int, batch: int):
-    """Yield (ids2d [R, size], done_count): consecutive equal-size rounds of
-    the ramped schedule stacked into groups of <= ROUND_GROUP."""
-    pending: list[np.ndarray] = []
-    pend_size = -1
-    done = 0
+def _flat_cand(candidates: str, built: int, flat_until: int) -> bool:
+    """The pool route of rounds that start after ``built`` nodes: flat for
+    "flat", and for "hybrid" while fewer than ``flat_until``."""
+    return candidates == "flat" or (candidates == "hybrid" and built < flat_until)
 
-    def flush():
-        return np.stack(pending), done
 
+def build_groups(n: int, counts, batch: int, candidates: str, flat_until: int,
+                 group: int = ROUND_GROUP):
+    """The rounds of a build of S shards of ``counts`` nodes (``n`` the
+    longest) as (ids [R, S, size], flat_cand, done): the ramped schedule,
+    consecutive rounds of one size stacked into groups of at most
+    ``group``; a round's lanes hold its live positions, -1 past them and
+    past a shard's count. The hybrid switch is checked once a group, on the
+    ``built`` positions before it; ``done`` counts them after it."""
+    counts = np.asarray(counts)[:, None]
+    pending, built, done = [], 0, 0
     for start, live, size in ramped_batches(n, batch):
-        ids = np.full(size, -1, np.int32)
-        ids[:live] = np.arange(start, start + live, dtype=np.int32)
-        if pending and (size != pend_size or len(pending) == ROUND_GROUP):
-            yield flush()
-            pending = []
-        pending.append(ids)
-        pend_size = size
+        if pending and (size != pending[0].shape[1] or len(pending) == group):
+            yield np.stack(pending), _flat_cand(candidates, built, flat_until), done
+            pending, built = [], done
+        lane = start + np.arange(size)
+        ok = (lane < start + live) & (lane < counts)
+        pending.append(np.where(ok, lane, -1).astype(np.int32))
         done = start + live
     if pending:
-        yield flush()
+        yield np.stack(pending), _flat_cand(candidates, built, flat_until), done
+
+
+def insert_groups(first, counts, span: int, batch: int, candidates: str,
+                  flat_until: int, built: int, group: int = ROUND_GROUP):
+    """The rounds of an insert into S shards as (rounds, flat_cand): a round
+    at each offset pos = 0, batch, .. < ``span``, ``batch`` lanes wide (the
+    last one span - pos); lane j holds shard si's node first[si] + pos + j
+    while pos + j < counts[si], else -1. At most ``group`` rounds a group;
+    the hybrid switch is checked once a group, on ``built`` + pos nodes."""
+    first = np.asarray(first, np.int64)[:, None]
+    counts = np.asarray(counts, np.int64)[:, None]
+    rounds = []
+    for pos in range(0, span, batch):
+        off = np.arange(pos, min(pos + batch, span))
+        rounds.append(np.where(off < counts, first + off, -1).astype(np.int32))
+    for i in range(0, len(rounds), group):
+        yield rounds[i:i + group], _flat_cand(candidates, built + i * batch, flat_until)
 
 
 def _draw_levels(rng: np.random.Generator, n: int, lam: float) -> np.ndarray:
@@ -520,22 +566,232 @@ def _draw_levels(rng: np.random.Generator, n: int, lam: float) -> np.ndarray:
     return np.minimum((-np.log(u) * lam).astype(np.int64), LMAX).astype(np.int32)
 
 
-def _padded_ids(lids: np.ndarray, dev) -> torch.Tensor:
-    """An id list -1 padded to a power of two (at least 8), on ``dev``."""
-    size = max(8, 1 << int(np.ceil(np.log2(len(lids)))))
-    padded = np.full(size, -1, np.int32)
-    padded[:len(lids)] = lids
-    return torch.from_numpy(padded).to(dev)
+def _upper_slots(levels: np.ndarray, start) -> tuple[np.ndarray, np.ndarray]:
+    """Upper slots of S shards' [S, w] levels: shard si's nodes of level >= 1
+    take start[si], start[si] + 1, .. in node order, the others -1.
+    -> (slots [S, w] int32, nodes given a slot [S])."""
+    has = levels >= 1
+    slots = np.where(has, np.asarray(start)[:, None] + np.cumsum(has, 1) - 1, -1)
+    return slots.astype(np.int32), has.sum(1)
 
 
-def _check_candidates(candidates: str, flat_until: int | None) -> int:
+def _level_id_lists(levels: np.ndarray, counts, rng=None) -> list[np.ndarray]:
+    """Per-level id lists of S shards: out[l-1][si] = the ids of shard si
+    with level >= l among its first counts[si] slots, up to the highest
+    level. Levels above UPPER_POOL_CAP nodes are subsampled from ``rng`` in
+    shard order (upper levels guide the descent and tolerate it; no
+    subsample without ``rng``); each level is -1 padded to one power of two
+    (at least 8) for all shards."""
+    s = levels.shape[0]
+    top = max(int(levels[si, :counts[si]].max(initial=0)) for si in range(s))
+    out = []
+    for level in range(1, top + 1):
+        per = [np.nonzero(levels[si, :counts[si]] >= level)[0].astype(np.int32)
+               for si in range(s)]
+        if rng is not None:
+            per = [np.sort(rng.choice(ids, UPPER_POOL_CAP, replace=False))
+                   if len(ids) > UPPER_POOL_CAP else ids for ids in per]
+        longest = max(max(len(ids) for ids in per), 1)
+        arr = np.full((s, max(8, 1 << int(np.ceil(np.log2(longest))))), -1, np.int32)
+        for si, ids in enumerate(per):
+            arr[si, :len(ids)] = ids
+        out.append(arr)
+    return out
+
+
+def check_candidates(candidates: str, flat_until: int | None,
+                     store: str = "f32") -> int:
+    """Raise on an unknown pool route or table type; returns ``flat_until``
+    or its default, 2,000,000."""
     if candidates not in ("flat", "beam", "hybrid"):
         raise ValueError(f"candidates={candidates!r}; expected flat|beam|hybrid")
+    if store not in ("f32", "bf16"):
+        raise ValueError(f"store={store!r}; expected f32|bf16")
     return 2_000_000 if flat_until is None else flat_until
 
 
-def _labels_i64(labels, n: int, dev) -> torch.Tensor:
-    lab = (np.arange(n, dtype=np.uint64) if labels is None
+def plan_build(counts, lam: float, rng: np.random.Generator, batch: int):
+    """The host plan of a build of S shards of ``counts`` nodes: levels
+    drawn from ``rng`` shard by shard ([S, n] for the longest shard's n, 0
+    past a shard's count), upper slots, the per-level id lists subsampled
+    from the same generator, and each shard's entry and maximum level among
+    the first round's nodes. -> (levels, slots, n_upper [S], level_ids,
+    entry [S], max_level [S])."""
+    levels = np.zeros((len(counts), max(counts)), np.int32)
+    for si, ni in enumerate(counts):
+        levels[si, :ni] = _draw_levels(rng, ni, lam)
+    slots, n_upper = _upper_slots(levels, np.zeros(len(counts), np.int64))
+    first = next(ramped_batches(levels.shape[1], batch))[1]
+    head = [levels[si, :min(first, ni)] for si, ni in enumerate(counts)]
+    return (levels, slots, n_upper, _level_id_lists(levels, counts, rng),
+            [int(np.argmax(h)) for h in head], [int(h.max()) for h in head])
+
+
+def plan_insert(levels: np.ndarray, counts, n_upper, owner, width: int,
+                lam: float, rng: np.random.Generator, subsample: bool = True):
+    """The host plan of an insert into S shards holding ``counts`` nodes and
+    ``n_upper`` upper slots, their levels ``levels`` [S, cap]: new row i
+    goes to shard owner[i]; its levels are drawn from ``rng`` in row order
+    and each shard's rows form a block of ``width`` lanes at its count.
+    Capacity doubles until every block fits. -> (levels [S, new_cap] with
+    the blocks, block levels and upper slots [S, width], new_cap, ucap (+1
+    dummy slot), level_ids over the grown counts)."""
+    s, cap = levels.shape
+    lv = _draw_levels(rng, len(owner), lam)
+    blk = np.zeros((s, width), np.int32)
+    for si in range(s):
+        mine = lv[owner == si]
+        blk[si, :len(mine)] = mine
+    slots, added = _upper_slots(blk, n_upper)
+    new_cap = cap
+    while new_cap < int((counts + width).max()):
+        new_cap = max(8, new_cap * 2)
+    full = np.zeros((s, new_cap), np.int32)
+    full[:, :cap] = levels
+    for si in range(s):
+        full[si, counts[si]:counts[si] + width] = blk[si]
+    need = counts + np.bincount(owner, minlength=s)
+    return (full, blk, slots, new_cap, int((n_upper + added).max()) + 1,
+            _level_id_lists(full, need, rng if subsample else None))
+
+
+def build_tables(vectors, sq_norms, levels, slots, ucap: int, m: int) -> dict:
+    """The tables of a build of S shards, on the rows' device: ``vectors``
+    [S, n, ..] and ``sq_norms`` [S, n] as given, empty adjacency (a dummy
+    row at n; ucap - 1 upper slots and a dummy), the planned levels, upper
+    slots and slot -> node map."""
+    dev = vectors.device
+    s, n = levels.shape
+    return {
+        "vectors": vectors,
+        "sq_norms": sq_norms,
+        "neighbors0": torch.full((s, n + 1, 2 * m), -1, dtype=torch.int32,
+                                 device=dev),
+        "upper_neighbors": torch.full((s, ucap, LMAX, m), -1, dtype=torch.int32,
+                                      device=dev),
+        "upper_slot": torch.from_numpy(slots).to(dev),
+        "levels": torch.from_numpy(levels).to(dev),
+        "upper_ids": torch.from_numpy(
+            np.stack([upper_ids_from_slots(x, ucap) for x in slots])).to(dev),
+    }
+
+
+def grown(t: torch.Tensor, rows: int, fill) -> torch.Tensor:
+    """A new [S, rows, ..] tensor: ``t`` ([S, r, ..], r <= rows) with rows
+    appended, set to ``fill``."""
+    extra = rows - t.shape[1]
+    if extra <= 0:
+        return t.clone()
+    return torch.cat([t, t.new_full((t.shape[0], extra) + t.shape[2:], fill)], 1)
+
+
+def put_blocks(t: torch.Tensor, starts, block: torch.Tensor) -> None:
+    """t[si, starts[si]:starts[si] + B] = block[si] for every shard."""
+    b = block.shape[1]
+    for si, st in enumerate(starts):
+        t[si, st:st + b] = block[si]
+
+
+def grown_tables(tables: dict, counts, n_upper, upper_ids: np.ndarray,
+                 new_cap: int, ucap: int, blocks: dict) -> dict:
+    """An insert's tables: ``tables`` ([S, cap, ..], the vectors as the
+    rounds' rows) grown to ``new_cap`` rows and at least ``ucap`` upper
+    slots, with each shard's block of new rows (``blocks``: [S, b, ..]
+    tensors or numpy arrays by table name) at its count counts[si]. A shard
+    keeps its first n_upper[si] upper slots (the rest are blanks or a
+    build's dummy) and their ids, ``upper_ids`` [S, >= n_upper]; its block's
+    nodes take the slots ``blocks["upper_slot"]`` names. The dummy row of
+    neighbors0 moves to the new cap."""
+    dev = tables["levels"].device
+    cap = tables["levels"].shape[1]
+    u_old = tables["upper_neighbors"].shape[1]
+    ucap = max(u_old, ucap)
+    real = (torch.arange(u_old, device=dev)[None, :]
+            < torch.from_numpy(np.asarray(n_upper)).to(dev)[:, None])
+    out = {
+        "vectors": grown(tables["vectors"], new_cap, 0),
+        "sq_norms": grown(tables["sq_norms"], new_cap, 0),
+        "neighbors0": grown(tables["neighbors0"][:, :cap], new_cap + 1, -1),
+        "upper_neighbors": grown(torch.where(real[:, :, None, None],
+                                             tables["upper_neighbors"], -1),
+                                 ucap, -1),
+        "upper_slot": grown(tables["upper_slot"], new_cap, -1),
+        "levels": grown(tables["levels"], new_cap, 0),
+    }
+    for name, block in blocks.items():
+        put_blocks(out[name], counts, torch.as_tensor(block, device=dev))
+    uid = np.full((len(counts), ucap), -1, np.int32)
+    slots = blocks["upper_slot"]
+    for si, (n0, nu) in enumerate(zip(counts, n_upper)):
+        uid[si, :nu] = upper_ids[si, :nu]
+        has = slots[si] >= 0
+        uid[si, slots[si][has]] = n0 + np.nonzero(has)[0]
+    out["upper_ids"] = torch.from_numpy(uid).to(dev)
+    return out
+
+
+def build_states(tables: dict, host_levels, entry, max_level, n, m: int,
+                 dim: int, metric: Metric, seeded: bool = True) -> list:
+    """One BuildState a shard over views of the stacked ``tables``.
+    ``seeded``: the states carry the planned ``upper_ids``, so beam rounds
+    seed 16 entries from the dense entry scan (else one entry point)."""
+    return [BuildState(**{k: tables[k][si] for k in TABLES},
+                       host_levels=host_levels[si], entry=int(entry[si]),
+                       max_level=int(max_level[si]), n=int(n[si]), m=m, dim=dim,
+                       metric=int(metric),
+                       upper_ids=tables["upper_ids"][si] if seeded else None)
+            for si in range(len(host_levels))]
+
+
+def _pq_decode_rows(codes, cb):
+    """[..., S] uint8 codes -> [..., S*dsub] f32 rows (a codebook gather)."""
+    sub = torch.arange(cb.shape[0], device=codes.device)
+    return cb[sub, codes.long()].flatten(-2)
+
+
+def pq_encode_rows(x, cb, rotation=None):
+    """f32 rows -> [n, S] uint8 codes (rotated first under OPQ)."""
+    if rotation is not None:
+        x = x @ rotation
+    return _assign(_split(x, cb.shape[0]), cb).T.contiguous()
+
+
+def pq_snap(x, cb, rotation=None):
+    """f32 rows -> their PQ reconstruction in the rotated space: what a PQ
+    table stores of them, as rows the rounds can run over."""
+    return _pq_decode_rows(pq_encode_rows(x, cb, rotation), cb)
+
+
+def round_rows(vectors, quant: int, vec_scales=None, cb=None,
+               widen: bool = True):
+    """The rows an insert's rounds run over, of a stored [S, cap, ..]
+    table: PQ codes decoded through ``cb`` (rows in the rotated space), i8
+    codes times their scales, f16/bf16 rows widened to f32 where ``widen``;
+    other tables as they are."""
+    if quant == QUANT_PQ:
+        return _pq_decode_rows(vectors, cb)
+    if quant == int(QuantKind.I8):
+        return vectors.float() * vec_scales[..., None]
+    if widen and vectors.dtype in (torch.bfloat16, torch.float16):
+        return vectors.float()
+    return vectors
+
+
+def stored_rows(rows, quant: int, dtype, cb=None):
+    """``round_rows`` back: the rows [S, cap, ..] stored as before, exact
+    for the old rows. PQ rows are centroids in the rotated space, so they
+    are encoded without the rotation and the old codes come back unchanged;
+    i8 rows are quantised again; others take ``dtype``. -> (vectors,
+    vec_scales or None)."""
+    if quant == QUANT_PQ:
+        return torch.stack([pq_encode_rows(r, cb) for r in rows]), None
+    if quant == int(QuantKind.I8):
+        return quantize_i8(rows)
+    return rows.to(dtype), None
+
+
+def _labels_i64(labels, n: int, dev, start: int = 0) -> torch.Tensor:
+    lab = (np.arange(start, start + n, dtype=np.uint64) if labels is None
            else np.ascontiguousarray(labels, np.uint64))
     return torch.from_numpy(lab.view(np.int64)).to(dev)
 
@@ -554,7 +810,8 @@ def build_on_device(
     flat_until: int | None = None,
     device: str | torch.device | None = None,
 ) -> DeviceGraph:
-    """Build an HNSW graph over ``vectors`` on ``device`` (default cuda).
+    """Build an HNSW graph over ``vectors`` on ``device`` (default cuda): the
+    one-shard case of the plan ``build_sharded_device`` runs.
 
     ``vectors``: numpy rows (f32; packed uint32 words for hamming) or a
     tensor. A tensor already on the device in the stored type is used in
@@ -574,9 +831,7 @@ def build_on_device(
     ``progress_cb(frac)`` is called with the built fraction in [0, 1] after
     a group whenever its whole percent changed.
     """
-    flat_until = _check_candidates(candidates, flat_until)
-    if store not in ("f32", "bf16"):
-        raise ValueError(f"store={store!r}; expected f32|bf16")
+    flat_until = check_candidates(candidates, flat_until, store)
     dev = resolve_device(device)
     metric = Metric(params.metric)
     if metric == Metric.HAMMING:
@@ -594,105 +849,36 @@ def build_on_device(
         if metric == Metric.HAMMING:
             host = host.view(np.int32)
         vec_dev = torch.from_numpy(host).to(dev).to(store_dtype)
-    n, _ = vec_dev.shape
+    n = vec_dev.shape[0]
     m = params.m
-    max_in = max_in or max(4, m // 2)
     batch = min(batch, n)
 
-    # host-side level draws and upper slots (insert.c:32-46's law)
-    rng = np.random.default_rng(seed)
-    levels = _draw_levels(rng, n, params.level_lambda)
-    has_upper = levels >= 1
-    upper_slot = np.full(n, -1, np.int32)
-    upper_slot[has_upper] = np.arange(int(has_upper.sum()), dtype=np.int32)
-    ucap = int(has_upper.sum()) + 1  # +1 dummy slot for masked writes
+    levels, slots, n_upper, level_ids, entry, max_level = plan_build(
+        [n], params.level_lambda, np.random.default_rng(seed), batch)
+    tables = build_tables(vec_dev[None], _sq_of(vec_dev, metric)[None], levels,
+                          slots, int(n_upper[0]) + 1, m)
+    states = build_states(tables, levels, entry, max_level, [0], m, params.dim,
+                          metric)
 
-    first = next(ramped_batches(n, batch))[1]  # the first round's live count
-    st = BuildState(
-        vectors=vec_dev,
-        sq_norms=_sq_of(vec_dev, metric),
-        neighbors0=torch.full((n + 1, 2 * m), -1, dtype=torch.int32, device=dev),
-        upper_neighbors=torch.full((ucap, LMAX, m), -1, dtype=torch.int32,
-                                   device=dev),
-        upper_slot=torch.from_numpy(upper_slot).to(dev),
-        levels=torch.from_numpy(levels).to(dev),
-        host_levels=levels,
-        entry=int(np.argmax(levels[:first])),
-        max_level=int(levels[:first].max()),
-        n=0,
-        m=m,
-        dim=params.dim,
-        metric=int(metric),
-        upper_ids=torch.from_numpy(upper_ids_from_slots(upper_slot, ucap)).to(dev),
-    )
-
-    # per-level id lists; levels above UPPER_POOL_CAP nodes are subsampled
-    # (upper levels guide the descent and tolerate it)
-    level_ids = []
-    for lvl in range(1, LMAX + 1):
-        lids = np.nonzero(levels >= lvl)[0].astype(np.int32)
-        if len(lids) == 0:
-            break
-        if len(lids) > UPPER_POOL_CAP:
-            lids = np.sort(rng.choice(lids, UPPER_POOL_CAP, replace=False))
-        level_ids.append(_padded_ids(lids, dev))
-    level_ids = tuple(level_ids)
-
-    # the first round's graph is empty: its within-batch pool does all the
-    # linking (an exact pruned kNN seed graph)
-    last_pct = -1
-    built = 0  # nodes inserted before the current group (hybrid switch)
-    for ids2d, done in _grouped_round_ids(n, batch):
-        insert_rounds(st, ids2d, level_ids, efc=params.ef_construction,
-                      max_in=max_in,
-                      flat_cand=(candidates == "flat"
-                                 or (candidates == "hybrid" and built < flat_until)))
-        built = done
-        if progress_cb is not None:
+    def groups():
+        # the first round's graph is empty: its within-batch pool does all
+        # the linking (an exact pruned kNN seed graph)
+        last_pct = -1
+        for ids, flat, done in build_groups(n, [n], batch, candidates, flat_until):
+            yield ids, flat
             pct = done * 100 // n
-            if pct != last_pct:
+            if progress_cb is not None and pct != last_pct:
                 last_pct = pct
                 progress_cb(done / n)
 
-    return DeviceGraph(
-        vectors=st.vectors,
-        sq_norms=st.sq_norms,
-        neighbors0=st.neighbors0,
-        upper_neighbors=st.upper_neighbors,
-        upper_slot=st.upper_slot,
-        levels=st.levels,
+    insert_rounds(states, level_ids, groups(), params.ef_construction,
+                  max_in or max(4, m // 2))
+    return dataclasses.replace(
+        _graph_view(states[0]), vectors=vec_dev,
         labels=_labels_i64(labels, n, dev),
         deleted=torch.zeros(n, dtype=torch.bool, device=dev),
-        entry=st.entry,
-        max_level=st.max_level,
-        num_nodes=n,
-        upper_ids=st.upper_ids,
-        m=m,
-        dim=params.dim,
-        metric=int(metric),
         quant=int(QuantKind.F16 if store_dtype == torch.bfloat16
-                  else QuantKind.F32),
-    )
-
-
-def _grown(t: torch.Tensor, rows: int, fill) -> torch.Tensor:
-    """A new tensor: ``t`` with rows appended up to ``rows``, set to fill."""
-    extra = max(rows - t.shape[0], 0)
-    return torch.cat([t, t.new_full((extra,) + t.shape[1:], fill)])
-
-
-def _pq_decode_rows(codes, cb):
-    """[n, S] uint8 codes -> [n, S*dsub] f32 rows (a codebook gather)."""
-    s = cb.shape[0]
-    sub = torch.arange(s, device=codes.device)[None, :]
-    return cb[sub, codes.long()].reshape(codes.shape[0], -1)
-
-
-def _pq_encode_rows(x, cb, rotation=None):
-    """f32 rows -> [n, S] uint8 codes (rotated first under OPQ)."""
-    if rotation is not None:
-        x = x @ rotation
-    return _assign(_split(x, cb.shape[0]), cb).T.contiguous()
+                  else QuantKind.F32))
 
 
 def device_insert(
@@ -708,139 +894,68 @@ def device_insert(
 ) -> DeviceGraph:
     """Insert ``vectors`` into a copy of ``graph`` on its device by the same
     rounds (the device analog of ldb_aminsert); ``graph`` is left as it is.
+    The one-shard case of the plan ``insert_sharded`` runs.
 
     Capacity grows by doubling when it runs out. Levels come from
-    ``default_rng(seed + n0)``, n0 the graph's node count. Quantised
-    storage runs the rounds over an f32 view and is restored after: i8
-    codes are dequantised and quantised again, bf16 widened and rounded
-    again (both exact for the old rows), PQ codes decoded through the
-    codebook (in the rotated space, under OPQ) with the new rows snapped to
-    their codes first, then encoded again without the rotation, so the old
-    codes come back unchanged. ``candidates`` / ``flat_until``: as in
-    ``build_on_device`` ("hybrid" suits trickle inserts into huge graphs,
-    where a flat scan a round would dominate).
+    ``default_rng(seed + n0)``, n0 the graph's node count; the per-level id
+    lists are not subsampled. Quantised storage runs the rounds over an f32
+    view and is restored after: i8 codes are dequantised and quantised
+    again, bf16 widened and rounded again (both exact for the old rows), PQ
+    codes decoded through the codebook (in the rotated space, under OPQ)
+    with the new rows snapped to their codes first, then encoded again
+    without the rotation, so the old codes come back unchanged.
+    ``candidates`` / ``flat_until``: as in ``build_on_device``, the switch
+    checked once per group of ROUND_GROUP rounds ("hybrid" suits trickle
+    inserts into huge graphs, where a flat scan a round would dominate).
     """
-    flat_until = _check_candidates(candidates, flat_until)
+    flat_until = check_candidates(candidates, flat_until)
     metric = Metric(graph.metric)
     dev = graph.device
-    restore = None
-    pq_cb = pq_rot = None
-    base = graph.vectors
-    if graph.quant == QUANT_PQ:
-        restore = "pq"
-        pq_cb, pq_rot = graph.pq_codebook, graph.pq_rotation
-        base = _pq_decode_rows(graph.vectors, pq_cb)
-        x = torch.from_numpy(np.ascontiguousarray(vectors, np.float32)).to(dev)
-        vectors = _pq_decode_rows(_pq_encode_rows(x, pq_cb, pq_rot), pq_cb)
-    if graph.quant == int(QuantKind.I8):
-        restore = "i8"
-        base = graph.vectors.float() * graph.vec_scales[:, None]
-    elif graph.vectors.dtype in (torch.bfloat16, torch.float16):
-        restore = graph.vectors.dtype
-        base = graph.vectors.float()
+    pq_cb, pq_rot = graph.pq_codebook, graph.pq_rotation
     if metric == Metric.HAMMING:
         new = torch.from_numpy(
             np.ascontiguousarray(vectors, np.uint32).view(np.int32)).to(dev)
-    elif isinstance(vectors, torch.Tensor):
+    elif isinstance(vectors, torch.Tensor) and graph.quant != QUANT_PQ:
         new = vectors.float()
     else:
         new = torch.from_numpy(np.ascontiguousarray(vectors, np.float32)).to(dev)
+    if graph.quant == QUANT_PQ:
+        new = pq_snap(new, pq_cb, pq_rot)
     b_new = new.shape[0]
     n0 = graph.num_nodes
     m = graph.m
-    need = n0 + b_new
-    max_in = max_in or max(4, m // 2)
-
-    # ---- grow (amortised doubling) ----
-    cap = graph.cap
-    new_cap = cap
-    while new_cap < need:
-        new_cap = max(8, new_cap * 2)
-    rng = np.random.default_rng(seed + n0)
-    new_levels = _draw_levels(rng, b_new, 1.0 / np.log(m))
 
     old_slots = graph.upper_slot[:n0].cpu().numpy()
     n_upper0 = int(old_slots.max()) + 1 if (old_slots >= 0).any() else 0
-    add_upper = int((new_levels >= 1).sum())
-    new_slot = np.full(b_new, -1, np.int32)
-    new_slot[new_levels >= 1] = n_upper0 + np.arange(add_upper, dtype=np.int32)
-    ucap_new = max(graph.upper_neighbors.shape[0], n_upper0 + add_upper + 1)
-
-    vecs = _grown(base, new_cap, 0)
-    vecs[n0:need] = new
-    sqn = _grown(graph.sq_norms, new_cap, 0)
-    sqn[n0:need] = _sq_of(new, metric)
-    # the dummy row moves to the new cap
-    nbr0 = torch.cat([graph.neighbors0[:cap],
-                      torch.full((new_cap + 1 - cap, 2 * m), -1,
-                                 dtype=torch.int32, device=dev)])
-    levels = _grown(graph.levels, new_cap, 0)
-    levels[n0:need] = torch.from_numpy(new_levels).to(dev)
-    slots = _grown(graph.upper_slot, new_cap, -1)
-    slots[n0:need] = torch.from_numpy(new_slot).to(dev)
-    # exactly the n_upper0 real slots, then blank ones: graphs from
-    # to_device carry no dummy slot, so the old last slot is real
-    upper = torch.cat([graph.upper_neighbors[:n_upper0],
-                       torch.full((ucap_new - n_upper0, LMAX, m), -1,
-                                  dtype=torch.int32, device=dev)])
-    # the planned slot -> id map of the grown graph, made before the rounds
-    # so beam rounds take the dense entry scan
-    up_ids = np.full(ucap_new, -1, np.int32)
     if graph.upper_ids is not None:
-        up_ids[:n_upper0] = graph.upper_ids[:n_upper0].cpu().numpy()
+        old_ids = graph.upper_ids[:n_upper0].cpu().numpy()
     else:
-        up_ids[:n_upper0] = upper_ids_from_slots(old_slots, max(n_upper0, 1))[:n_upper0]
-    up_ids[n_upper0:n_upper0 + add_upper] = (
-        n0 + np.nonzero(new_levels >= 1)[0].astype(np.int32))
+        old_ids = upper_ids_from_slots(old_slots, max(n_upper0, 1))
+    levels, blk, slots, new_cap, ucap, level_ids = plan_insert(
+        graph.levels[None].cpu().numpy(), np.array([n0]), np.array([n_upper0]),
+        np.zeros(b_new, np.int64), b_new, 1.0 / np.log(m),
+        np.random.default_rng(seed + n0), subsample=False)
+    old = {k: getattr(graph, k)[None] for k in TABLES}
+    old["vectors"] = round_rows(old["vectors"], graph.quant, graph.vec_scales, pq_cb)
+    tables = grown_tables(
+        old, [n0], [n_upper0], old_ids[None], new_cap, ucap,
+        {"vectors": new[None], "sq_norms": _sq_of(new, metric)[None],
+         "levels": blk, "upper_slot": slots})
+    states = build_states(tables, levels, [graph.entry], [graph.max_level], [n0],
+                          m, graph.dim, metric)
+    insert_rounds(states, level_ids,
+                  insert_groups([n0], [b_new], -(-b_new // batch) * batch, batch,
+                                candidates, flat_until, n0),
+                  ef_construction, max_in or max(4, m // 2))
 
-    all_levels = np.concatenate([graph.levels[:n0].cpu().numpy(), new_levels])
-    host_levels = np.zeros(new_cap, np.int32)
-    host_levels[:need] = all_levels
-    st = BuildState(
-        vectors=vecs, sq_norms=sqn, neighbors0=nbr0, upper_neighbors=upper,
-        upper_slot=slots, levels=levels, host_levels=host_levels,
-        entry=graph.entry, max_level=graph.max_level, n=n0, m=m,
-        dim=graph.dim, metric=int(metric),
-        upper_ids=torch.from_numpy(up_ids).to(dev),
-    )
-    level_ids = tuple(
-        _padded_ids(np.nonzero(all_levels >= lvl)[0].astype(np.int32), dev)
-        for lvl in range(1, int(all_levels.max(initial=0)) + 1))
-
-    rounds = []
-    for pos in range(n0, need, batch):
-        ids = np.full(batch, -1, np.int32)
-        end = min(pos + batch, need)
-        ids[:end - pos] = np.arange(pos, end, dtype=np.int32)
-        rounds.append(ids)
-    for i in range(0, len(rounds), ROUND_GROUP):
-        built = n0 + i * batch  # nodes live before this group
-        insert_rounds(st, np.stack(rounds[i:i + ROUND_GROUP]), level_ids,
-                      efc=ef_construction, max_in=max_in,
-                      flat_cand=(candidates == "flat"
-                                 or (candidates == "hybrid" and built < flat_until)))
-
-    if labels is None:
-        labels = np.arange(n0, need, dtype=np.uint64)
-    lab = torch.cat([graph.labels[:n0], _labels_i64(labels, b_new, dev),
-                     torch.zeros(new_cap - need, dtype=torch.int64, device=dev)])
+    lab = torch.cat([graph.labels[:n0], _labels_i64(labels, b_new, dev, n0),
+                     torch.zeros(new_cap - n0 - b_new, dtype=torch.int64,
+                                 device=dev)])
     deleted = torch.cat([graph.deleted[:n0],
                          torch.zeros(new_cap - n0, dtype=torch.bool, device=dev)])
-    out_vecs, out_scales = st.vectors, None
-    if restore == "pq":
-        # old rows are decoded centroids (re-encoding is the identity), new
-        # rows were snapped to their centroids above
-        out_vecs = _pq_encode_rows(st.vectors, pq_cb)
-    elif restore == "i8":
-        out_vecs, out_scales = quantize_i8(st.vectors)
-    elif restore is not None:
-        out_vecs = st.vectors.to(restore)
-    return DeviceGraph(
-        vectors=out_vecs, sq_norms=st.sq_norms, neighbors0=st.neighbors0,
-        upper_neighbors=st.upper_neighbors, upper_slot=st.upper_slot,
-        levels=st.levels, labels=lab, deleted=deleted,
-        entry=st.entry, max_level=st.max_level, num_nodes=need,
-        upper_ids=st.upper_ids, vec_scales=out_scales,
-        pq_codebook=pq_cb, pq_rotation=pq_rot,
-        m=m, dim=graph.dim, metric=int(metric), quant=graph.quant,
-    )
+    vecs, scales = stored_rows(tables["vectors"], graph.quant, graph.vectors.dtype,
+                               pq_cb)
+    return dataclasses.replace(
+        _graph_view(states[0]), vectors=vecs[0], labels=lab, deleted=deleted,
+        vec_scales=None if scales is None else scales[0], pq_codebook=pq_cb,
+        pq_rotation=pq_rot, quant=graph.quant)

@@ -19,14 +19,15 @@ single-graph functions:
   the lower index first among equal values; so does a stable sort);
 - flat scans: ``flat.py::flat_search_graph`` / ``flat_search_graph_rerank``
   per shard (the decode kernel for PQ shards, K4 for hamming shards);
-- the device build and inserts: ``graph/build_device.py::_insert_round``
-  per shard, round by round, over per-shard ``BuildState`` views of the
-  stacked tables. Shards are independent, so their order inside a round
-  does not change the result;
-- the host plan (round-robin partition, level draws from one generator in
-  shard order, the UPPER_POOL_CAP subsample, per-level id lists padded to
-  a common size, ramped rounds with -1 lanes for shorter shards) is the
-  reference's, so both packages build the same graphs.
+- the device build and inserts: the plan of ``graph/build_device.py``
+  (level draws from one generator in shard order, the UPPER_POOL_CAP
+  subsample, per-level id lists padded to a common size, ramped rounds
+  with -1 lanes for shorter shards, the tables, the quantised round trip
+  and ``insert_rounds``, which runs each round over every shard's
+  ``BuildState`` views of the stacked tables) is the reference's, so both
+  packages build the same graphs. This module adds only the sharding: the
+  round-robin partition, this rank's slice of the whole-host plan, the
+  gathered levels and counts, global ids and the PQ rerank rows.
 
 Ranks (``init_multihost``, then ``make_mesh(n_shards, data)`` over the
 group): the world is a (data x shard) grid, rank = d * P + p with P = world
@@ -58,6 +59,24 @@ import torch
 
 from lantern_tpu_torch import resolve_device
 from lantern_tpu_torch.config import HnswParams, Metric, QuantKind
+from lantern_tpu_torch.graph.build_device import (
+    TABLES,
+    build_groups,
+    build_states,
+    build_tables,
+    check_candidates,
+    grown,
+    grown_tables,
+    insert_groups,
+    insert_rounds,
+    plan_build,
+    plan_insert,
+    pq_encode_rows,
+    pq_snap,
+    put_blocks,
+    round_rows,
+    stored_rows,
+)
 from lantern_tpu_torch.graph.device import (
     QUANT_PQ,
     DeviceGraph,
@@ -69,9 +88,6 @@ from lantern_tpu_torch.parallel import _dist
 from lantern_tpu_torch.parallel._dist import init_multihost  # noqa: F401
 
 _INF = float("inf")
-# levels with more nodes than this are subsampled for the upper pools (the
-# reference's sharded build and insert, as build_on_device)
-UPPER_POOL_CAP = 32768
 
 
 @dataclasses.dataclass(frozen=True)
@@ -579,8 +595,6 @@ def quantize_sharded(
     all-gathered in shard order, rank 0 trains and broadcasts the codebook
     and rotation, so every rank holds the same bits; i8 is local.
     """
-    from lantern_tpu_torch.graph.build_device import _pq_encode_rows
-
     _check_mesh(index, mesh)
     metric = Metric(index.metric)
     if metric == Metric.HAMMING:
@@ -615,7 +629,7 @@ def quantize_sharded(
         cent = torch.from_numpy(np.array(codebook.centroids, np.float32)).to(dev)
         rot = (None if codebook.rotation is None else
                torch.from_numpy(np.array(codebook.rotation, np.float32)).to(dev))
-        codes = torch.stack([_pq_encode_rows(index.vectors[si].float(), cent, rot)
+        codes = torch.stack([pq_encode_rows(index.vectors[si].float(), cent, rot)
                              for si in range(index.n_local)])
         new_params = (dataclasses.replace(
             p, pq=True, num_subvectors=codebook.num_subvectors,
@@ -641,77 +655,6 @@ def quantize_sharded(
     raise ValueError(f"quant={quant!r}; expected 'pq' or 'i8'")
 
 
-def _level_arrays(lvl: np.ndarray, counts, rng) -> list[np.ndarray]:
-    """Per-level id lists of every shard (level_arrays[l-1][si] = the ids of
-    shard si with level >= l, counted over its first counts[si] slots),
-    levels above UPPER_POOL_CAP nodes subsampled from ``rng`` in shard
-    order, -1 padded to one power of two (at least 8) per level."""
-    s = lvl.shape[0]
-    top = max((int(lvl[si, :counts[si]].max(initial=0)) for si in range(s)),
-              default=0)
-    out = []
-    for level in range(1, top + 1):
-        per_shard = []
-        for si in range(s):
-            lids = np.nonzero(lvl[si, :counts[si]] >= level)[0].astype(np.int32)
-            if len(lids) > UPPER_POOL_CAP:
-                lids = np.sort(rng.choice(lids, UPPER_POOL_CAP, replace=False))
-            per_shard.append(lids)
-        longest = max(max(len(x) for x in per_shard), 1)
-        size = max(8, 1 << int(np.ceil(np.log2(longest))))
-        arr = np.full((s, size), -1, np.int32)
-        for si in range(s):
-            arr[si, :len(per_shard[si])] = per_shard[si]
-        out.append(arr)
-    return out
-
-
-def _shard_states(tables: dict, host_levels: np.ndarray, entry, max_level,
-                  n, m: int, dim: int, metric: Metric, level_arrays):
-    """Per-shard BuildStates over views of the stacked tables, with their
-    level id lists and level row tables on the device."""
-    from lantern_tpu_torch.graph.build_device import BuildState, _level_tables
-
-    dev = tables["vectors"].device
-    out = []
-    for si in range(tables["vectors"].shape[0]):
-        st = BuildState(
-            vectors=tables["vectors"][si],
-            sq_norms=tables["sq_norms"][si],
-            neighbors0=tables["neighbors0"][si],
-            upper_neighbors=tables["upper_neighbors"][si],
-            upper_slot=tables["upper_slot"][si],
-            levels=tables["levels"][si],
-            host_levels=host_levels[si],
-            entry=int(entry[si]),
-            max_level=int(max_level[si]),
-            n=int(n[si]),
-            m=m,
-            dim=dim,
-            metric=int(metric),
-        )
-        lids = tuple(torch.from_numpy(a[si].copy()).to(dev) for a in level_arrays)
-        out.append((st, lids, _level_tables(st.vectors, lids, metric)))
-    return out
-
-
-def _run_rounds(states, rounds, efc: int, max_in: int, flat_for_round):
-    """Insert rounds (``rounds``: (pos, ids [S, size] numpy) in order) into
-    every shard's state in place; a shard whose lanes are all -1 in a round
-    is skipped (its round would only rewrite the dummy rows)."""
-    from lantern_tpu_torch.graph.build_device import _insert_round
-
-    dev = states[0][0].vectors.device
-    for pos, ids in rounds:
-        ids_dev = torch.from_numpy(ids).to(dev)
-        flat = flat_for_round(pos)
-        for si, (st, lids, lvecs) in enumerate(states):
-            if ids[si, 0] < 0:
-                continue
-            _insert_round(st, ids[si], lids, lvecs, ids_dev[si], efc, max_in,
-                          flat)
-
-
 def build_sharded_device(
     vectors: np.ndarray,
     params: HnswParams,
@@ -724,10 +667,10 @@ def build_sharded_device(
     store: str = "f32",
     flat_until: int | None = None,
 ) -> ShardedIndex:
-    """Build every shard's subgraph on the device by the insert rounds of
-    ``graph/build_device.py``, each round run over every shard of this rank.
-    Every rank is given the same ``vectors`` and draws the whole host plan;
-    no collective.
+    """Build every shard's subgraph on the device by the plan and the insert
+    rounds of ``graph/build_device.py``, each round run over every shard of
+    this rank. Every rank is given the same ``vectors`` and draws the whole
+    host plan; no collective.
 
     ``candidates``: "flat" (default) pools from a masked flat scan of each
     shard's built prefix; "beam" from a beam search of the partial
@@ -736,11 +679,7 @@ def build_sharded_device(
     tables (l2sq / cos; the squared norms come from the f32 rows). Hamming
     builds take packed uint32 words.
     """
-    from lantern_tpu_torch.graph.build_device import _check_candidates, ramped_batches
-
-    flat_until = _check_candidates(candidates, flat_until)
-    if store not in ("f32", "bf16"):
-        raise ValueError(f"store={store!r}; expected f32|bf16")
+    flat_until = check_candidates(candidates, flat_until, store)
     metric = Metric(params.metric)
     np_dtype = np.uint32 if metric == Metric.HAMMING else np.float32
     vectors = np.ascontiguousarray(vectors, np_dtype)
@@ -749,7 +688,6 @@ def build_sharded_device(
     if n < s:
         raise ValueError(f"need at least one vector per shard ({n} < {s})")
     m = params.m
-    max_in = max_in or max(4, m // 2)
     if labels is None:
         labels = np.arange(n, dtype=np.uint64)
     labels = np.asarray(labels, np.uint64)
@@ -760,24 +698,11 @@ def build_sharded_device(
     nmax = max(counts)
     batch = min(batch, nmax)
 
-    # the whole plan: levels and upper slots of every shard, then the level
-    # lists, from one generator in shard order; this rank keeps its shards'
-    rng = np.random.default_rng(seed)
-    lvl_all = np.zeros((s, nmax), np.int32)
-    slot_all = np.full((s, nmax), -1, np.int32)
-    n_upper_max = 1
-    for si in range(s):
-        ni = counts[si]
-        u = np.maximum(rng.random(ni), 1e-300)
-        lv = np.minimum((-np.log(u) * params.level_lambda).astype(np.int64), LMAX)
-        lvl_all[si, :ni] = lv
-        has = lv >= 1
-        slot_all[si, :ni][has] = np.arange(int(has.sum()), dtype=np.int32)
-        n_upper_max = max(n_upper_max, int(has.sum()))
-    ucap = n_upper_max + 1  # + dummy slot
+    # the whole plan, from one generator in shard order; this rank keeps
+    # its shards'
+    levels, slots, n_upper, level_ids, entry, max_level = plan_build(
+        counts, params.level_lambda, np.random.default_rng(seed), batch)
     loc = list(mesh.local_shards)
-    level_arrays = [a[loc] for a in _level_arrays(lvl_all, [nmax] * s, rng)]
-    lvl_np, slot_np = lvl_all[loc], slot_all[loc]
 
     sl = len(loc)
     vec_np = np.zeros((sl, nmax, dim), np_dtype)
@@ -793,49 +718,31 @@ def build_sharded_device(
         sq = np.zeros((sl, nmax), np.float32)  # unused by hamming distances
     else:
         sq = np.einsum("snd,snd->sn", vec_np, vec_np).astype(np.float32)
-    first = next(ramped_batches(nmax, batch))[1]
-    entry0 = [int(np.argmax(lvl_all[si, :min(first, counts[si])])) for si in loc]
-    maxl0 = [int(lvl_all[si, :min(first, counts[si])].max()) for si in loc]
     vec_t = _t(vec_np, torch.device("cpu"))
     if store == "bf16" and metric != Metric.HAMMING:
         # rounded on the host, so the device never holds the f32 table
         vec_t = vec_t.to(torch.bfloat16)
-    tables = {
-        "vectors": vec_t.to(dev),
-        "sq_norms": _t(sq, dev),
-        "neighbors0": torch.full((sl, nmax + 1, 2 * m), -1, dtype=torch.int32,
-                                 device=dev),
-        "upper_neighbors": torch.full((sl, ucap, LMAX, m), -1,
-                                      dtype=torch.int32, device=dev),
-        "upper_slot": _t(slot_np, dev),
-        "levels": _t(lvl_np, dev),
-    }
+    # at least one upper slot and the dummy
+    tables = build_tables(vec_t.to(dev), _t(sq, dev), levels[loc], slots[loc],
+                          max(int(n_upper.max()), 1) + 1, m)
     del vec_t
-    states = _shard_states(tables, lvl_np, entry0, maxl0, [0] * sl, m,
-                           params.dim, metric, level_arrays)
-
-    def rounds():
-        for pos, live, size in ramped_batches(nmax, batch):
-            ids = np.full((sl, size), -1, np.int32)
-            for j, si in enumerate(loc):
-                hi = min(pos + live, counts[si])
-                if hi > pos:
-                    ids[j, :hi - pos] = np.arange(pos, hi, dtype=np.int32)
-            yield pos, ids
-
-    _run_rounds(states, rounds(), params.ef_construction, max_in,
-                lambda pos: candidates == "flat"
-                or (candidates == "hybrid" and pos < flat_until))
+    states = build_states(tables, levels[loc], [entry[si] for si in loc],
+                          [max_level[si] for si in loc], [0] * sl, m, params.dim,
+                          metric, seeded=False)
+    # the hybrid switch is checked every round
+    groups = build_groups(nmax, [counts[si] for si in loc], batch, candidates,
+                          flat_until, group=1)
+    insert_rounds(states, [a[loc] for a in level_ids],
+                  ((ids, flat) for ids, flat, _ in groups),
+                  params.ef_construction, max_in or max(4, m // 2))
 
     return ShardedIndex(
         **tables,
         labels=_t(lab_np, dev),
         deleted=_t(gid_np[:, :nmax] < 0, dev),  # padding slots tombstoned
-        upper_ids=_t(np.stack([upper_ids_from_slots(slot_np[j], ucap)
-                               for j in range(sl)]), dev),
         global_ids=_t(gid_np, dev),
-        entry=tuple(st.entry for st, _, _ in states),
-        max_level=tuple(st.max_level for st, _, _ in states),
+        entry=tuple(st.entry for st in states),
+        max_level=tuple(st.max_level for st in states),
         num_nodes=tuple(counts[si] for si in loc),
         params=params,
         m=m,
@@ -1007,22 +914,6 @@ def _unstack_shard(index: ShardedIndex, si: int) -> DeviceGraph:
     })
 
 
-def _grown(t: torch.Tensor, rows: int, fill) -> torch.Tensor:
-    """A new [S, rows, ...] tensor: ``t`` ([S, r, ...], r <= rows) with rows
-    appended, set to ``fill``."""
-    extra = rows - t.shape[1]
-    if extra <= 0:
-        return t.clone()
-    return torch.cat([t, t.new_full((t.shape[0], extra) + t.shape[2:], fill)], 1)
-
-
-def _put_blocks(t: torch.Tensor, starts, block: torch.Tensor) -> None:
-    """t[si, starts[si]:starts[si] + B] = block[si] for every shard."""
-    b = block.shape[1]
-    for si, st in enumerate(starts):
-        t[si, st:st + b] = block[si]
-
-
 def insert_sharded(
     index: ShardedIndex,
     vectors: np.ndarray,
@@ -1034,7 +925,7 @@ def insert_sharded(
     flat_until: int = 2_000_000,
 ) -> ShardedIndex:
     """Insert new rows, each into its round-robin owner shard (global id
-    ``gid % S``, the build's partition), by the same rounds as
+    ``gid % S``, the build's partition), by the plan and the rounds of
     :func:`build_sharded_device`; ``index`` is left as it is.
 
     The tables grow (capacity and upper capacity doubling as needed) and
@@ -1045,14 +936,13 @@ def insert_sharded(
     decoded rows, the new rows snapped to their centroids first, and are
     encoded again (old codes come back unchanged; the rerank copy takes the
     new rows as given); i8 shards over their dequantised rows; bf16 tables
-    stay bf16; hamming (b1) shards over their words.
+    stay bf16; hamming (b1) shards over their words. The hybrid switch is
+    checked once an insert, on the shortest shard.
 
     Over ranks, every rank is given the whole batch and keeps the rows its
     shards own; one all-gather over the data row brings every shard's
     levels and counts (4 bytes a row), so each rank draws the whole plan.
     """
-    from lantern_tpu_torch.graph.build_device import _pq_decode_rows, _pq_encode_rows
-
     if index.params is None:
         raise ValueError("ShardedIndex has no params; cannot insert")
     if index.upper_ids is None:
@@ -1070,24 +960,18 @@ def insert_sharded(
     vectors = np.ascontiguousarray(vectors, np_dtype)
     b, width = vectors.shape
     s, cap = index.n_shards, index.cap
-    m = index.m
-    max_in = max(4, m // 2)
     dev = index.device
 
-    codebook = true_rows = None
+    true_rows = None
     if quant_mode == "pq":
-        from lantern_tpu_torch.quant.pq import pq_encode
-
         codebook = _sharded_codebook(index)
         if codebook.dim != width:
             raise ValueError("PQ shard codebook missing or dim mismatch")
         # snapped to their centroids in the ROTATED space: the edges are
         # built over what will be stored, and encoding them again is exact
-        true_rows = vectors.copy()
-        codes_new = pq_encode(vectors, codebook, device=dev)
-        cb_c = codebook.centroids
-        vectors = cb_c[np.arange(cb_c.shape[0])[None, :], codes_new].reshape(
-            b, width).astype(np.float32)
+        true_rows = vectors
+        vectors = _host(pq_snap(_t(vectors, dev), index.pq_codebook,
+                                index.pq_rotation))
 
     # small reads: per-shard node counts, upper-slot highwater and largest
     # global id, and the levels (4 bytes a row), of every shard
@@ -1113,20 +997,13 @@ def insert_sharded(
     if bmax == 0:
         return index
     bpad = max(8, 1 << int(np.ceil(np.log2(bmax))))  # the per-shard block
-    need = nn + b_si
+    lvl_full, lvl_blk, slot_blk, new_cap, ucap, level_ids = plan_insert(
+        lvl_old, nn, nup, owner, bpad, params.level_lambda,
+        np.random.default_rng(seed + int(nn.sum())))
 
-    rng = np.random.default_rng(seed + int(nn.sum()))
-    u = np.maximum(rng.random(b), 1e-300)
-    lv_all = np.minimum((-np.log(u) * params.level_lambda).astype(np.int64),
-                        LMAX).astype(np.int32)
-
-    # levels of every shard's block (for the plan), the rest for this
-    # rank's shards only
-    lvl_blk = np.zeros((s, bpad), np.int32)
-    add_si = np.zeros(s, np.int64)
+    # this rank's blocks of new rows
     rows_np = np.zeros((sl, bpad, width), np_dtype)
     sq_np = np.zeros((sl, bpad), np.float32)
-    slot_blk = np.full((sl, bpad), -1, np.int32)
     lab_blk = np.zeros((sl, bpad), np.uint64)
     gid_blk = np.full((sl, bpad), -1, np.int32)
     dele_blk = np.ones((sl, bpad), bool)  # lanes beyond b_si stay tombstoned
@@ -1134,16 +1011,9 @@ def insert_sharded(
     if with_rerank:
         true_blk = np.zeros((sl, bpad, width), np.float32)
         true_sq_blk = np.zeros((sl, bpad), np.float32)
-    for si in range(s):
+    for j, si in enumerate(loc):
         mine = owner == si
         k = int(b_si[si])
-        lvs = lv_all[mine]
-        lvl_blk[si, :k] = lvs
-        has = lvs >= 1
-        add_si[si] = int(has.sum())
-        if k == 0 or si not in loc:
-            continue
-        j = loc.index(si)
         rows_np[j, :k] = vectors[mine]
         if metric != Metric.HAMMING:
             vf = rows_np[j, :k].astype(np.float32)
@@ -1152,116 +1022,49 @@ def insert_sharded(
             true_blk[j, :k] = true_rows[mine]
             true_sq_blk[j, :k] = np.einsum("nd,nd->n", true_blk[j, :k],
                                            true_blk[j, :k])
-        slot_blk[j, :k][has] = nup[si] + np.arange(add_si[si], dtype=np.int32)
         lab_blk[j, :k] = labels[mine]
         gid_blk[j, :k] = new_gids[mine]
         dele_blk[j, :k] = False
 
-    new_cap = cap
-    while new_cap < int(need.max()) or new_cap < int(nn.max()) + bpad:
-        new_cap = max(8, new_cap * 2)
-    ucap_old = index.upper_neighbors.shape[1]
-    ucap_new = max(ucap_old, int((nup + add_si).max()) + 1)  # +1 dummy
-
-    # metadata for the per-level candidate pools (4 bytes a row)
-    lvl_full = np.zeros((s, new_cap), np.int32)
-    lvl_full[:, :cap] = lvl_old
-    for si in range(s):
-        lvl_full[si, nn[si]:nn[si] + bpad] = lvl_blk[si]
-        lvl_full[si, need[si]:] = 0  # pad lanes past the live set
-    level_arrays = [a[loc] for a in _level_arrays(lvl_full, need, rng)]
-    lvl_full, nn_loc = lvl_full[loc], nn[loc]
-
-    # ---- grow and scatter on the device ----
-    if quant_mode == "pq":
-        cb_dev = index.pq_codebook
-        base = torch.stack([_pq_decode_rows(index.vectors[j], cb_dev)
-                            for j in range(sl)])
-    elif quant_mode == "i8":
-        base = index.vectors.float() * index.vec_scales[..., None]
-    else:
-        base = index.vectors
-    vec2 = _grown(base, new_cap, 0)
-    _put_blocks(vec2, nn_loc, _t(rows_np, dev).to(vec2.dtype))
-    del base
-    sq2 = _grown(index.sq_norms, new_cap, 0)
-    _put_blocks(sq2, nn_loc, _t(sq_np, dev))
-    # the old dummy row at cap goes; fresh -1 rows and a new dummy follow
-    nbr2 = torch.cat([index.neighbors0[:, :cap],
-                      torch.full((sl, new_cap + 1 - cap, 2 * m), -1,
-                                 dtype=torch.int32, device=dev)], 1)
-    # upper adjacency: each shard's real slots only (rows past its count
-    # are blanks or the build's dummy), grown to ucap_new
-    real = (torch.arange(ucap_old, device=dev)[None, :]
-            < _t(nup[loc], dev)[:, None])
-    up2 = _grown(torch.where(real[:, :, None, None], index.upper_neighbors, -1),
-                 ucap_new, -1)
-    uslot2 = _grown(index.upper_slot, new_cap, -1)
-    _put_blocks(uslot2, nn_loc, _t(slot_blk, dev))
-    lvl2 = _grown(index.levels, new_cap, 0)
-    _put_blocks(lvl2, nn_loc, _t(lvl_blk[loc], dev))
-    lab2 = _grown(index.labels, new_cap, 0)
-    _put_blocks(lab2, nn_loc, _t(lab_blk, dev))
-    dele2 = _grown(index.deleted, new_cap, True)
-    _put_blocks(dele2, nn_loc, _t(dele_blk, dev))
-    gid2 = torch.cat([index.global_ids[:, :cap],
-                      torch.full((sl, new_cap + 1 - cap), -1, dtype=torch.int32,
-                                 device=dev)], 1)
-    _put_blocks(gid2, nn_loc, _t(gid_blk, dev))
-
-    # ---- the insert rounds ----
-    tables = {"vectors": vec2, "sq_norms": sq2, "neighbors0": nbr2,
-              "upper_neighbors": up2, "upper_slot": uslot2, "levels": lvl2}
-    states = _shard_states(tables, lvl_full, index.entry, index.max_level,
-                           nn_loc, m, index.dim, metric, level_arrays)
-    flat_cand = (candidates == "flat"
-                 or (candidates == "hybrid" and int(nn.min()) < flat_until))
-
-    def rounds():
-        for pos in range(0, bpad, batch):
-            size = min(batch, bpad - pos)
-            ids = np.full((sl, size), -1, np.int32)
-            for j, si in enumerate(loc):
-                hi = min(pos + size, int(b_si[si]))
-                if hi > pos:
-                    ids[j, :hi - pos] = nn[si] + np.arange(pos, hi, dtype=np.int32)
-            yield pos, ids
-
-    _run_rounds(states, rounds(), params.ef_construction, max_in,
-                lambda pos: flat_cand)
+    # ---- grow and scatter on the device, then the rounds ----
+    nn_loc = nn[loc]
+    old = {k: getattr(index, k) for k in TABLES}
+    old["vectors"] = round_rows(index.vectors, index.quant, index.vec_scales,
+                                index.pq_codebook, widen=False)
+    tables = grown_tables(
+        old, nn_loc, nup[loc], _host(index.upper_ids), new_cap, ucap,
+        {"vectors": _t(rows_np, dev), "sq_norms": _t(sq_np, dev),
+         "levels": lvl_blk[loc], "upper_slot": slot_blk[loc]})
+    lab2 = grown(index.labels, new_cap, 0)
+    put_blocks(lab2, nn_loc, _t(lab_blk, dev))
+    dele2 = grown(index.deleted, new_cap, True)
+    put_blocks(dele2, nn_loc, _t(dele_blk, dev))
+    gid2 = grown(index.global_ids[:, :cap], new_cap + 1, -1)
+    put_blocks(gid2, nn_loc, _t(gid_blk, dev))
+    states = build_states(tables, lvl_full[loc], index.entry, index.max_level,
+                          nn_loc, index.m, index.dim, metric, seeded=False)
+    # one group: the hybrid switch is checked once an insert
+    insert_rounds(states, [a[loc] for a in level_ids],
+                  insert_groups(nn_loc, b_si[loc], bpad, batch, candidates,
+                                flat_until, int(nn.min()), group=bpad),
+                  params.ef_construction, max(4, index.m // 2))
 
     # ---- quantised storage restored (exact for the old rows) ----
-    out_vecs, out_scales = vec2, None
+    out_vecs, out_scales = stored_rows(tables.pop("vectors"), index.quant,
+                                       index.vectors.dtype, index.pq_codebook)
     new_rerank, new_rsqn = index.rerank_rows, index.rerank_sqn
-    if quant_mode == "pq":
-        # rows already live in the rotated space: no rotation here
-        out_vecs = torch.stack([_pq_encode_rows(vec2[j], index.pq_codebook)
-                                for j in range(sl)])
-        if with_rerank:
-            new_rerank = _grown(index.rerank_rows, new_cap, 0)
-            _put_blocks(new_rerank, nn_loc,
-                        _t(true_blk, dev).to(new_rerank.dtype))
-            new_rsqn = _grown(index.rerank_sqn, new_cap, 0)
-            _put_blocks(new_rsqn, nn_loc, _t(true_sq_blk, dev))
-    elif quant_mode == "i8":
-        from lantern_tpu_torch.quant.scalar import quantize_i8
-
-        out_vecs, out_scales = quantize_i8(vec2)
-
-    old_uids = _host(index.upper_ids)
-    uid_np = np.full((sl, ucap_new), -1, np.int32)
-    for j, si in enumerate(loc):
-        uid_np[j, :nup[si]] = old_uids[j, :nup[si]]
-        has = slot_blk[j] >= 0
-        uid_np[j][slot_blk[j][has]] = nn[si] + np.nonzero(has)[0].astype(np.int32)
+    if with_rerank:
+        new_rerank = grown(index.rerank_rows, new_cap, 0)
+        put_blocks(new_rerank, nn_loc, _t(true_blk, dev).to(new_rerank.dtype))
+        new_rsqn = grown(index.rerank_sqn, new_cap, 0)
+        put_blocks(new_rsqn, nn_loc, _t(true_sq_blk, dev))
     return dataclasses.replace(
-        index, vectors=out_vecs, sq_norms=sq2, neighbors0=nbr2,
-        upper_neighbors=up2, upper_slot=uslot2, levels=lvl2, labels=lab2,
-        deleted=dele2, upper_ids=_t(uid_np, dev), global_ids=gid2,
-        entry=tuple(st.entry for st, _, _ in states),
-        max_level=tuple(st.max_level for st, _, _ in states),
-        num_nodes=tuple(int(need[si]) for si in loc), vec_scales=out_scales,
-        rerank_rows=new_rerank, rerank_sqn=new_rsqn,
+        index, **tables, vectors=out_vecs, labels=lab2, deleted=dele2,
+        global_ids=gid2,
+        entry=tuple(st.entry for st in states),
+        max_level=tuple(st.max_level for st in states),
+        num_nodes=tuple(int(nn[si] + b_si[si]) for si in loc),
+        vec_scales=out_scales, rerank_rows=new_rerank, rerank_sqn=new_rsqn,
     )
 
 

@@ -118,7 +118,9 @@ def ref_fix(ref, fix_base):
                                      (100_003, 1024), (1, 1), (40_000, 100)])
 def test_round_schedule_matches(ref, n, batch):
     assert list(bd.ramped_batches(n, batch)) == list(ref.ramped_batches(n, batch))
-    got = list(bd._grouped_round_ids(n, batch))
+    # one shard: the groups of the build's plan
+    got = [(ids[:, 0], done) for ids, _, done in
+           bd.build_groups(n, [n], batch, "flat", 0)]
     want = list(ref._grouped_round_ids(n, batch))
     assert len(got) == len(want)
     for (a, da), (b, db) in zip(got, want):
@@ -137,15 +139,20 @@ def test_level_plan_matches(ref, monkeypatch):
     x = np.random.default_rng(3).standard_normal((n, 2)).astype(np.float32)
     calls = {"port": [], "ref": []}
 
-    def recorder(key):
-        def rounds(st, ids2d, level_ids, efc, max_in, flat_cand=False):
-            calls[key].append((np.asarray(ids2d), [np.asarray(v) for v in level_ids],
-                               efc, max_in, flat_cand))
-            return st
-        return rounds
+    def recorder(st, ids2d, level_ids, efc, max_in, flat_cand=False):
+        calls["ref"].append((np.asarray(ids2d), [np.asarray(v) for v in level_ids],
+                             efc, max_in, flat_cand))
+        return st
 
-    monkeypatch.setattr(bd, "insert_rounds", recorder("port"))
-    monkeypatch.setattr(ref, "insert_rounds", recorder("ref"))
+    def port_recorder(states, level_ids, groups, efc, max_in):
+        # one shard: a group's rounds and the level lists of shard 0
+        for rounds, flat_cand in groups:
+            calls["port"].append((np.stack(rounds)[:, 0],
+                                  [v[0] for v in level_ids], efc, max_in,
+                                  flat_cand))
+
+    monkeypatch.setattr(bd, "insert_rounds", port_recorder)
+    monkeypatch.setattr(ref, "insert_rounds", recorder)
     fr = {"port": [], "ref": []}
     kw = dict(batch=1024, seed=7, candidates="hybrid", flat_until=50_000)
     g = build_on_device(x, HnswParams(dim=2, m=2, ef_construction=16),
@@ -322,9 +329,9 @@ def test_one_insert_round_matches(ref, flat):
     st = bd.BuildState(**t, host_levels=s["levels"], entry=s["entry"],
                        max_level=s["max_level"], n=s["n"], m=s["m"],
                        dim=s["dim"], metric=int(Metric.L2SQ))
-    level_ids = tuple(torch.from_numpy(v) for v in s["level_ids"])
-    bd.insert_rounds(st, s["ids"][None], level_ids, efc=32, max_in=4,
-                     flat_cand=flat)
+    # one shard, one group of one round
+    bd.insert_rounds([st], [v[None] for v in s["level_ids"]],
+                     [([s["ids"][None]], flat)], efc=32, max_in=4)
     rst = ref.BuildState(
         **{k: jnp.asarray(s[k]) for k in (
             "vectors", "sq_norms", "neighbors0", "upper_neighbors",
@@ -489,9 +496,10 @@ def test_device_insert_hybrid_routes_to_beam(monkeypatch):
     routes = []
     real = bd.insert_rounds
 
-    def spy(st, ids2d, level_ids, efc, max_in, flat_cand=False):
-        routes.append(flat_cand)
-        return real(st, ids2d, level_ids, efc, max_in, flat_cand)
+    def spy(states, level_ids, groups, efc, max_in):
+        groups = list(groups)
+        routes.extend(flat_cand for _, flat_cand in groups)
+        return real(states, level_ids, groups, efc, max_in)
 
     monkeypatch.setattr(bd, "insert_rounds", spy)
     extra = rng.standard_normal((300, 16)).astype(np.float32)

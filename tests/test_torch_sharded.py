@@ -449,6 +449,43 @@ def test_merge_topk_orders_ties_as_the_reference(s):
         np.testing.assert_array_equal(a, b)
 
 
+# ---- one shard: the single graph's plan ----
+
+PLAN_ARRAYS = ("levels", "upper_slot", "upper_ids", "neighbors0",
+               "upper_neighbors")
+
+
+def assert_shard_is_graph(ix, g):
+    """Shard 0 of ``ix`` holds ``g``'s plan and graph exactly."""
+    for name in PLAN_ARRAYS:
+        np.testing.assert_array_equal(getattr(ix, name)[0].numpy(),
+                                      getattr(g, name).numpy(), err_msg=name)
+    assert (ix.entry[0], ix.max_level[0], ix.num_nodes[0]) == (
+        g.entry, g.max_level, g.num_nodes)
+
+
+@pytest.mark.parametrize("metric", [Metric.L2SQ, Metric.COS], ids=["l2sq", "cos"])
+def test_one_shard_runs_the_single_graph_plan(metric):
+    """build_sharded_device and insert_sharded at S=1 give build_on_device
+    and device_insert's graph (f32, flat pools): levels, upper slots and
+    ids, both adjacency tables with their dummy rows, entry, maximum level
+    and count, after the build and after an insert that grows the
+    capacity."""
+    from lantern_tpu_torch.graph.build_device import build_on_device, device_insert
+
+    base = _base(5, 1300)
+    p = HnswParams(dim=16, m=8, ef_construction=48, metric=metric)
+    mesh = make_mesh(n_shards=1, device=CPU)
+    ix = build_sharded_device(base[:1000], p, mesh, batch=128, seed=5)
+    g = build_on_device(base[:1000], p, batch=128, seed=5, device=CPU)
+    assert_shard_is_graph(ix, g)
+    assert g.max_level >= 2 and g.upper_ids.shape[0] > 8
+    ix = insert_sharded(ix, base[1000:], mesh, batch=128, seed=6)
+    g = device_insert(g, base[1000:], batch=128, seed=6, ef_construction=48)
+    assert g.cap == ix.cap == 2000 and g.num_nodes == 1300
+    assert_shard_is_graph(ix, g)
+
+
 # ---- lifecycle ----
 
 INSERTS = {"grow": (400, 1600, 64)}
