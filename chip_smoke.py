@@ -56,7 +56,12 @@ Phases, each of which exits non-zero on failure:
    COS_DIST_GAP_MAX), its whole block against the plain version and
    float64 with -inf exactly at the masked rows, and its time beside its
    bound, the plain version and two library products the port never calls
-   (the FFMA and the TF32 ``torch.matmul``);
+   (the FFMA and the TF32 ``torch.matmul``); then the flat scan's row
+   select (``ops/row_topk.py``) over the l2sq block of 1024 queries against
+   the n rows: one ``flat_search`` through it (one launch, counted from 0),
+   the kernel bit-equal to its plain version at k = 10 and 128, and its time
+   beside its bound (one read of the block), the plain version and
+   ``torch.topk``;
 9. the hamming main path: ``Index(HnswParams(dim=1024, metric=HAMMING,
    quant=B1))`` over HAM_PATH_N clustered 1024-bit rows (4096 random
    centres, each bit flipped with p = 1/8) given as packed uint32 words,
@@ -206,6 +211,7 @@ import asyncio
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import hashlib
 import io
 import itertools
@@ -230,7 +236,7 @@ from torch.autograd import DeviceType
 from lantern_tpu_torch import HnswParams, Index
 from lantern_tpu_torch.config import Metric, QuantKind
 from lantern_tpu_torch.csrc.build import library_path
-from lantern_tpu_torch.flat import flat_search, flat_search_pq
+from lantern_tpu_torch.flat import _scores, flat_search, flat_search_pq
 from lantern_tpu_torch.native import get_lib
 from lantern_tpu_torch.ops.cos_block import cos_block, cos_scores_ref
 from lantern_tpu_torch.ops.distance import exact_search, unpack_bits
@@ -248,6 +254,9 @@ from lantern_tpu_torch.ops.pq_decode import (
     pq_decode,
     pq_decode_ref,
 )
+from lantern_tpu_torch.ops.row_topk import plan as row_topk_plan
+from lantern_tpu_torch.ops.row_topk import row_topk, row_topk_ref
+from lantern_tpu_torch.ops.row_topk import step as row_topk_step
 from lantern_tpu_torch.graph import build_device
 from lantern_tpu_torch import cli, embeddings
 from lantern_tpu_torch.autotune import AutotuneResult, autotune, save_results
@@ -522,12 +531,12 @@ def phase_build():
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
         kernels = {name: pool.submit(library_path, name)
                    for name in ("gather_dists", "pq_decode", "hamming",
-                                "cos_block")}
+                                "cos_block", "row_topk")}
         native = pool.submit(get_lib)
         sos = {name: f.result() for name, f in kernels.items()}
         native.result()
     log("build: lantern_tpu_torch/csrc/{gather_dists,pq_decode,hamming,"
-        "cos_block}.cu "
+        "cos_block,row_topk}.cu "
         f"(nvcc sm_90a) and the native engine (g++) in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, so in sos.items():
@@ -736,11 +745,11 @@ def phase_main_path(base, queries, base_dev, queries_dev, seed):
     batches = [queries[i:i + BATCH] for i in range(0, len(queries), BATCH)]
     results = {}
     # the f32 path's launches start here
-    gather_dists.launches = pq_decode.launches = 0
+    gather_dists.launches = pq_decode.launches = row_topk.launches = 0
     for mode in ("flat", "graph"):
         ix.search(batches[0], k=K, mode=mode)  # warm-up
         torch.cuda.synchronize()
-        launches0 = gather_dists.launches
+        launches0, selects0 = gather_dists.launches, row_topk.launches
         labels, dists, stats = [], [], []
         t0 = time.perf_counter()
         for b in batches:
@@ -761,7 +770,9 @@ def phase_main_path(base, queries, base_dev, queries_dev, seed):
                  f"distances (max abs {np.abs(dists - exact_d).max()})")
         res = dict(mode=mode, queries=len(queries), batch=BATCH,
                    qps=len(queries) / secs, ms_per_batch=secs / len(batches) * 1e3,
-                   recall_at_10=recall(ids, gt_i))
+                   recall_at_10=recall(ids, gt_i),
+                   row_topk_launches_per_batch=(row_topk.launches - selects0)
+                   / len(batches))
         if mode == "graph":
             res.update(
                 iterations_mean=float(np.mean([s["iterations"] for s in stats])),
@@ -773,6 +784,13 @@ def phase_main_path(base, queries, base_dev, queries_dev, seed):
     if pq_decode.launches:
         fail(f"the f32 path launched the PQ decode kernel {pq_decode.launches}"
              " times")
+    # the flat scan selects its one [BATCH, n] block once; the graph's entry
+    # scan selects through the same kernel
+    if results["flat"]["row_topk_launches_per_batch"] != 1:
+        fail(f"flat: {results['flat']['row_topk_launches_per_batch']} row_topk "
+             "launches a batch, not 1")
+    if results["graph"]["row_topk_launches_per_batch"] <= 0:
+        fail("the graph's entry scan never launched row_topk")
     for mode in ("flat", "graph"):
         profile_search(ix, batches[0], mode, results[mode]["ms_per_batch"],
                        mode=mode)
@@ -807,8 +825,8 @@ def timed_modes(ix, batches, modes, gt_i, check=None):
     for name, kw in modes.items():
         ix.search(batches[0], k=K, **kw)  # warm-up
         torch.cuda.synchronize()
-        pq0, k10, k40 = (pq_decode.launches, gather_dists.launches,
-                         hamming_block.launches)
+        pq0, k10, k40, sel0 = (pq_decode.launches, gather_dists.launches,
+                               hamming_block.launches, row_topk.launches)
         labels, dists = [], []
         t0 = time.perf_counter()
         for b in batches:
@@ -830,6 +848,8 @@ def timed_modes(ix, batches, modes, gt_i, check=None):
                    k1_launches_per_batch=(gather_dists.launches - k10)
                    / len(batches),
                    k4_launches_per_batch=(hamming_block.launches - k40)
+                   / len(batches),
+                   row_topk_launches_per_batch=(row_topk.launches - sel0)
                    / len(batches), **(extra or {}))
         results[name] = res
         log("search " + json.dumps(res))
@@ -1160,6 +1180,55 @@ def phase_cos_block(seed):
         fail(f"cos_block disagrees: {row}")
     if times["ms"] < BOUND_SHARE_MIN * row["three_products_bound_ms"]:
         fail(f"cos_block timed under {BOUND_SHARE_MIN} of its bound: {row}")
+    return row
+
+
+def phase_row_topk(base_dev, queries_dev):
+    """The flat scan's row select (``ops/row_topk.py``) at the cells' shape:
+    the l2sq block of the first BATCH queries against the n rows; one
+    ``flat_search`` through it (one launch, counted from 0); the kernel
+    against the plain version, positions and values bit-equal, at k = 10
+    and 128 (the search's k, the build's ef_construction); then timed
+    beside its bound (one read of the block), the plain version and
+    ``torch.topk``, which the port no longer calls. Returns the row; its
+    ``launches`` are this phase's own (the main path counts the search's)."""
+    queries = queries_dev[:BATCH]
+    sqn = (base_dev * base_dev).sum(1)
+    row_topk.launches = 0
+    flat_search(base_dev, sqn, queries, k=K)
+    torch.cuda.synchronize()
+    launches = row_topk.launches
+    if launches != 1:
+        fail(f"flat_search made {launches} row_topk launches, not 1")
+    scores = _scores(base_dev, sqn, queries, Metric.L2SQ)
+    equal = {}
+    for k in (K, 128):
+        values, positions = row_topk(scores, k)
+        want = row_topk_ref(scores, k)
+        equal[f"k{k}"] = bool(torch.equal(positions, want[1]) and torch.equal(
+            values.view(torch.int32), want[0].view(torch.int32)))
+    times = {}
+    for k, key in ((K, ""), (128, "_k128")):
+        fn = lambda x, k=k: row_topk(x, k)  # noqa: E731
+        call_ms = cuda_ms(fn, [scores])
+        times["ms" + key] = device_ms(fn, [scores], per_call=2) or call_ms
+        times["call_ms" + key] = call_ms
+        times["library_ms" + key] = cuda_ms(
+            lambda x, k=k: torch.topk(x, k, dim=1), [scores], warm=1, reps=3)
+    times["plain_ms"] = cuda_ms(lambda x: row_topk_ref(x, K), [scores],
+                                warm=1, reps=1)
+    bound_ms = scores.numel() * 4 / PEAK_BYTES_PER_S * 1e3
+    del scores
+    row = dict(q=BATCH, n=base_dev.shape[0], launches=launches, equal=equal,
+               plan=dataclasses.asdict(row_topk_plan(
+                   BATCH, base_dev.shape[0], K, row_topk_step())),
+               **times, bound_ms=bound_ms, bound_by="bytes",
+               share_of_bound=bound_ms / times["ms"])
+    log("row_topk " + json.dumps(row))
+    if not all(equal.values()):
+        fail(f"row_topk disagrees with its plain version: {row}")
+    if times["ms"] < BOUND_SHARE_MIN * bound_ms:  # no run can go below it
+        fail(f"row_topk timed under {BOUND_SHARE_MIN} of its bound: {row}")
     return row
 
 
@@ -3244,9 +3313,12 @@ def main(argv=None):
     torch.cuda.synchronize()
     cos = phase_cos_block(args.seed)
     torch.cuda.synchronize()
+    select = phase_row_topk(base_dev, queries_dev)
+    torch.cuda.synchronize()
     lap("kernels")
     launches, host_build_s, gt_i, main_results = phase_main_path(
         base, queries, base_dev, queries_dev, args.seed)
+    select_launches = row_topk.launches  # the main path's searches, profiled too
     torch.cuda.synchronize()
     lap("main path")
     del base_dev
@@ -3381,6 +3453,21 @@ def main(argv=None):
         "bound_by": cos["bound_by"],
         "library_ms": cos["library_ms"],
         "library_tf32_ms": cos["library_tf32_ms"],
+    }, {
+        "name": "row_topk",
+        "route": "cuda",
+        "source": "lantern_tpu_torch/csrc/row_topk.cu",
+        "replaces": "none: the flat scan's row top-k, left to XLA "
+                    "(jax.lax.top_k) in lantern_tpu/flat.py",
+        "launches": select_launches,
+        "flat_launches_per_batch":
+            main_results["flat"]["row_topk_launches_per_batch"],
+        "graph_launches_per_batch":
+            main_results["graph"]["row_topk_launches_per_batch"],
+        "phase_launches": select["launches"],
+        **{key: select[key] for key in (
+            "ms", "ms_k128", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_ms_k128")},
     }]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

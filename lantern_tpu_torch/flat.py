@@ -4,7 +4,9 @@ Scores are rank-equivalent, not metric-equal: l2sq ranks by 2<q,x> - |x|^2,
 cosine by <q,x>/|x|; true distances are rebuilt for the returned k only.
 The score block is computed in float32 (bf16 rows are widened, so products
 are exact and sums f32, as the reference's f32-accumulating dot) and reduced
-with ``torch.topk``, which is exact: the port has no approximate top-k. Up to
+with ``ops/row_topk.py::row_topk`` (the hand-written kernel on the card),
+which is exact and breaks ties to the lower id, as the reference's
+``jax.lax.top_k`` does: the port has no approximate top-k. Up to
 ``ONESHOT_MAX_N`` rows the scan is one [Q, N] block; above, it walks blocks
 and merges a running top-k.
 
@@ -42,6 +44,7 @@ from lantern_tpu_torch.ops.cos_block import cos_block, takes
 from lantern_tpu_torch.ops.distance import require_full_f32_matmul
 from lantern_tpu_torch.ops.hamming import hamming_scores
 from lantern_tpu_torch.ops.pq_decode import codebook_bf16, pq_decode
+from lantern_tpu_torch.ops.row_topk import row_topk
 from lantern_tpu_torch.utils.bench import span
 
 # one-shot scans materialise a [Q, N] score block; beyond this N the scan is
@@ -136,20 +139,22 @@ def _score_to_dist(score, q_sq, metric: Metric):
 def _blocked_flat_topk(score_fn, n, k, k_out, block, q_sq, metric):
     """Top-k of ``score_fn(start, stop)`` ([Q, stop-start] descending-better
     scores with any tombstone mask applied) over rows [0, n): one block when
-    n <= block, else a running merge. Returns (dists [Q, k_out] ascending,
-    ids [Q, k_out] int32), padded with (inf, -1)."""
+    n <= block, else a running merge, each select a ``row_topk`` (ties to
+    the lower id). Returns (dists [Q, k_out] ascending, ids [Q, k_out]
+    int32), padded with (inf, -1)."""
     best_s = best_i = None
     for start in range(0, n, block):
         with span("flat.score"):
             s = score_fn(start, min(start + block, n))
         with span("flat.topk"):
-            bs, bi = torch.topk(s, min(k, s.shape[1]), dim=1, sorted=True)
+            bs, bi = row_topk(s, min(k, s.shape[1]))
             bi = bi + start
             if best_s is not None:
+                # the running best's ids all lie below the block's, so the
+                # lower position of a tie is the lower id
                 cat_s = torch.cat([best_s, bs], 1)
                 cat_i = torch.cat([best_i, bi], 1)
-                bs, arg = torch.topk(cat_s, min(k, cat_s.shape[1]), dim=1,
-                                     sorted=True)
+                bs, arg = row_topk(cat_s, min(k, cat_s.shape[1]))
                 bi = torch.gather(cat_i, 1, arg)
         best_s, best_i = bs, bi
     finite = torch.isfinite(best_s)
@@ -186,8 +191,8 @@ def flat_search(
     ``deleted``: optional [N] bool mask of rows excluded from the results.
     ``exact=True`` is the ground-truth mode: it refuses to run with TF32
     matmuls enabled (top-k itself is always exact here). Hamming scores
-    ``hamming_scores`` (K4 on the card, mask included); tied distances come
-    in any order.
+    ``hamming_scores`` (K4 on the card, mask included). Tied distances come
+    in ascending id, and a tie at the k-th place keeps the lower ids.
     """
     metric = Metric(metric)
     hamming = metric == Metric.HAMMING

@@ -393,7 +393,7 @@ class Index:
         ``mode``: 'flat' = dense scan, 'graph' = batched HNSW beam search,
         'auto' = cost-model dispatch (costmodel.choose_search_strategy).
         ``recall_target`` stands where the reference takes it (sixth) and is
-        ignored: the port's top-k is exact (``torch.topk``), where the
+        ignored: the port's top-k is exact (``ops/row_topk.py``), where the
         reference's flat scan may take ``approx_max_k`` at that target.
         ``rerank`` (PQ indexes): keep an ADC shortlist of this size, then
         re-score it on the device against a bf16 copy of the full-precision

@@ -1,6 +1,7 @@
 """The benchmark's readers of the program's spans
 (``portbench/metrics/{dispatch.host_ms,flat.score_ms,search.idle_ms,
-flat.scale_ms,flat.score_roofline}.py``) on synthetic trace records, each
+flat.scale_ms,flat.score_roofline,flat.select_ms}.py``) on synthetic trace
+records, each
 against a value computed by hand, and the score block's operations and
 bytes (``portbench/roofline/score_block.py``).
 
@@ -178,3 +179,30 @@ def test_benchmark_lists_the_cos_reader(name):
         assert name in [m["name"] for m in spec.cell(cell).per_layer]
     for cell in CELLS:
         assert name not in [m["name"] for m in spec.cell(cell).per_layer]
+
+
+# the select's reader, in every cell: it reads ``flat.topk`` (torch.topk's
+# kernels on a program before the row_topk kernel, row_topk's after it)
+SELECT_CELLS = CELLS + COS_CELLS
+
+
+def test_flat_select_ms_is_the_kernels_under_the_span():
+    rec = _rec()
+    rec.host_device_s["flat.topk"] = 0.05
+    assert _read("flat.select_ms", rec) == pytest.approx(0.05 * 1e3 / 2,
+                                                         abs=1e-9)
+
+
+def test_flat_select_ms_none_without_the_span_or_a_trace():
+    assert _read("flat.select_ms", _rec()) is None
+    assert _read("flat.select_ms", None) is None
+
+
+def test_benchmark_lists_the_select_reader():
+    entry = next(m for m in spec.benchmark()["per_layer"]
+                 if m["name"] == "flat.select_ms")
+    assert entry["workloads"] == SELECT_CELLS
+    assert entry["unit"] == "ms/batch" and entry["source"] == "device_trace"
+    assert entry["layer"] == "flat scan (flat.py)" and entry["moves"] == "qps"
+    for cell in SELECT_CELLS:
+        assert "flat.select_ms" in [m["name"] for m in spec.cell(cell).per_layer]
